@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
+
+  dequant     the fetch path's decode (block dequant, memory-bound)
+  flash_attn  causal GQA attention for the prefill path (forward)
+
+Each kernel is a CUDA C++ source in ``repro_torch/csrc`` with a plain C
+entry point, built by ``_build`` with nvcc at first use and called through
+``ctypes``; ``ref`` holds the plain PyTorch versions and ``ops`` dispatches.
+"""
+from repro_torch.kernels import ops, ref
+
+__all__ = ["ops", "ref"]

@@ -1,0 +1,42 @@
+"""Dispatch between each CUDA kernel and its plain PyTorch version.
+
+Counterpart of ``repro.kernels.ops``. ``impl``:
+  * ``None`` (auto): the kernel for CUDA tensors, the plain version for CPU
+    tensors — chosen by where the tensors lie, nothing else;
+  * ``"kernel"``: the CUDA kernel; raises for tensors that are not on a card;
+  * ``"ref"``: the plain version on any device (what the kernels are held to).
+There is no fallback: a CUDA tensor goes to the kernel, which launches or
+raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.dequant import dequant as dequant_kernel
+from repro_torch.kernels.flash_attn import flash_attention as flash_kernel
+
+
+def _pick(t: torch.Tensor, impl: Optional[str]) -> str:
+    impl = impl or ("kernel" if t.is_cuda else "ref")
+    if impl not in ("kernel", "ref"):
+        raise ValueError(f"impl must be 'kernel', 'ref' or None, got {impl!r}")
+    return impl
+
+
+def dequant(q, scales, *, qblock: int = 256, out_dtype=torch.bfloat16,
+            impl: Optional[str] = None) -> torch.Tensor:
+    if _pick(q, impl) == "ref":
+        return ref.dequant_ref(q, scales, block=qblock, out_dtype=out_dtype)
+    return dequant_kernel(q, scales, qblock=qblock, out_dtype=out_dtype)
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              scale: Optional[float] = None,
+              impl: Optional[str] = None) -> torch.Tensor:
+    if _pick(q, impl) == "ref":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+    return flash_kernel(q, k, v, causal=causal, window=window, scale=scale)

@@ -1,0 +1,162 @@
+"""CUDA kernels and the CUDA path of the port against their plain PyTorch
+versions. These need a card and skip without one; this file imports no JAX,
+so it runs on a machine that has only PyTorch:
+
+  python -m pytest -q tests/test_torch_cuda.py
+
+Tolerances: dequant is bit-exact (one f32 multiply and one round to nearest
+even on both sides); f32 flash attention within 1e-5 (f32 FMAs against
+cuBLAS f32 products, summed in another order); bf16 flash attention (tensor
+cores) within 2e-2 (P rounded to bf16 before P.V on both sides, but the
+kernel rounds the running-max-relative P and the plain version the
+normalised one). The model on the card in f32 matches its CPU run within
+1e-4 and greedy tokens match.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke
+from repro_torch.core import DeviceStore, DeviceStoreConfig, decode_records
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.dequant import dequant as dequant_kernel
+from repro_torch.kernels.flash_attn import flash_attention as flash_kernel
+from repro_torch.models import build_model
+from repro_torch.serve.serve_step import generate
+
+pytestmark = pytest.mark.cuda
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n,f,qblock", [(8, 256, 256), (33, 1024, 256),
+                                        (32, 512, 128), (256, 150528, 256)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scale_dtype", [torch.float16, torch.float32])
+def test_dequant_kernel_bit_exact(cuda, n, f, qblock, out_dtype, scale_dtype):
+    gen = torch.Generator(cuda).manual_seed(0)
+    q = torch.randint(-127, 128, (n, f), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    s = (torch.rand((n, f // qblock), generator=gen, device=cuda) * 0.1
+         ).to(scale_dtype)
+    before = dequant_kernel.launches
+    got = ops.dequant(q, s, qblock=qblock, out_dtype=out_dtype)
+    assert dequant_kernel.launches == before + 1
+    want = ref.dequant_ref(q, s, block=qblock, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+ATTN_SHAPES = [
+    # b, t, h, kv, dh, dv, window
+    (2, 128, 4, 2, 32, 32, None),
+    (1, 256, 4, 4, 64, 64, 64),
+    (1, 128, 2, 1, 32, 32, 32),         # tight window
+    (1, 64, 4, 4, 128, 128, None),
+    (2, 200, 32, 2, 128, 128, None),    # ragged T, chatglm3's group of 16
+    (1, 300, 8, 2, 64, 64, 100),        # ragged T with a window
+    (1, 1, 4, 2, 16, 16, None),         # one position
+]
+# bf16 runs on the tensor cores, which take dh == dv in {16, 32, 64, 128}
+F32_ONLY_SHAPES = [(2, 128, 8, 2, 48, 24, None)]      # dv != dh
+
+
+@pytest.mark.parametrize("dtype,b,t,h,kv,dh,dv,win",
+                         [(dt, *s) for dt in (torch.float32, torch.bfloat16)
+                          for s in ATTN_SHAPES]
+                         + [(torch.float32, *s) for s in F32_ONLY_SHAPES])
+def test_flash_attention_kernel_vs_plain(cuda, b, t, h, kv, dh, dv, win, dtype):
+    gen = torch.Generator(cuda).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    q, k, v = rnd(b, t, h, dh), rnd(b, t, kv, dh), rnd(b, t, kv, dv)
+    before = flash_kernel.launches
+    got = ops.attention(q, k, v, causal=True, window=win)
+    assert flash_kernel.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, t, h, dv)
+    want = ref.attention_ref(q, k, v, causal=True, window=win)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32 if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 32), (torch.bfloat16, 64)])
+def test_flash_attention_kernel_non_causal(cuda, dtype, dh):
+    gen = torch.Generator(cuda).manual_seed(1)
+    q, k, v = (torch.randn((1, 100, 4, dh), generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    got = ops.attention(q, k, v, causal=False)
+    want = ref.attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32 if dtype == torch.float32 else BF16))
+
+
+def test_flash_attention_kernel_refuses_bad_input(cuda):
+    q = torch.zeros((1, 8, 4, 16), device=cuda)
+    with pytest.raises(ValueError, match="Tq == Tk"):
+        ops.attention(q, q[:, :4, :2], q[:, :4, :2])
+    with pytest.raises(ValueError, match="head dims"):
+        x = torch.zeros((1, 8, 2, 192), device=cuda)
+        ops.attention(x, x, x)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="bf16 head dims"):
+        x = torch.zeros((1, 8, 2, 48), device=cuda, dtype=torch.bfloat16)
+        ops.attention(x, x, x[..., :24].contiguous())
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(8 * 4 * 16 + 1, device=cuda, dtype=torch.bfloat16)
+        x = flat[1:].view(1, 8, 4, 16)          # contiguous, 2 bytes off
+        ops.attention(x, x, x)
+
+
+def test_kernels_skip_empty_inputs(cuda):
+    before = (dequant_kernel.launches, flash_kernel.launches)
+    got = ops.dequant(torch.zeros((0, 256), dtype=torch.int8, device=cuda),
+                      torch.zeros((0, 1), dtype=torch.float16, device=cuda))
+    assert tuple(got.shape) == (0, 256)
+    x = torch.zeros((2, 0, 4, 16), dtype=torch.bfloat16, device=cuda)
+    assert tuple(ops.attention(x, x, x).shape) == (2, 0, 4, 16)
+    assert (dequant_kernel.launches, flash_kernel.launches) == before
+
+
+def test_device_tier_on_card_matches_cpu(cuda):
+    n, f = 64, 1024
+    gen = torch.Generator().manual_seed(0)
+    recs = torch.randint(0, 256, (n, f + 2 * (f // 256)), generator=gen,
+                         dtype=torch.uint8)
+    recs[:, f:] = (torch.rand((n, f // 256), generator=gen) + 0.5
+                   ).half().view(torch.uint8)
+    idx = torch.randperm(n, generator=gen)[:16]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        st = DeviceStore(DeviceStoreConfig(n, recs.shape[1], 0.5), device=dev)
+        b, o = st.fetch(st.place(recs), idx.to(dev))
+        out[dev.type] = (b.cpu(), o.cpu(), decode_records(b, f).cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    assert out["cuda"][1].item()                    # cap 8 < 16 requests
+
+
+def test_model_on_card_matches_cpu(cuda):
+    cfg = get_smoke("chatglm3-6b").scaled(remat=False, dtype="float32")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32))
+    before = flash_kernel.launches
+    lc, _ = card.prefill(toks.to(cuda), 110)
+    assert flash_kernel.launches == before + cfg.num_layers
+    lp, _ = cpu.prefill(toks, 110)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=1e-4, atol=1e-4)
+    assert torch.equal(generate(card, toks, steps=6).cpu(),
+                       generate(cpu, toks, steps=6))
