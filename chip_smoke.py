@@ -4,11 +4,14 @@
   python3 chip_smoke.py            (from the root of a checkout; needs one card)
 
 Phases, each of which raises on a failed check:
-  1. environment: torch version, the card's name and power limit; build both
-     CUDA kernels from ``src/repro_torch/csrc`` (nvcc, in parallel);
-  2. reference at a small size: the chatglm3 smoke model in f32 on the card
-     (through the kernels) against the same weights on the CPU (plain path);
-  3. the main path, with every kernel launch counter set to 0 first:
+  1. environment: torch version, the card's name and power limit; build the
+     three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each, in
+     parallel);
+  2. references at a small size: the chatglm3 and falcon-mamba smoke models
+     in f32 on the card (through the kernels) against the same weights on
+     the CPU (plain path);
+  3. the main paths, each with every kernel launch counter set to 0 just
+     before it and read just after:
      a. device tier: a block-quantized ImageNet-size record store
         (40 000 x 151 704 B, ~6.1 GB) and a token store (262 144 x 2 048
         tokens, 2 GiB), both made on the card from a seed; a fetch of 256
@@ -17,8 +20,13 @@ Phases, each of which raises on a failed check:
         capacity_factor 0.5;
      b. serving chatglm3-6b at full width and depth with random bf16 weights
         (``repro_torch.launch.serve.run``): a 4 x 2048 prompt, 32 greedy
-        decode steps;
-  4. each kernel against its plain version at the main path's shapes, and
+        decode steps; then (c) its logits checked and (d) a profile of warm
+        prefill and decode;
+     e. with chatglm3-6b freed and the stores still resident: serving
+        falcon-mamba-7b the same way, at full width and depth (64 layers,
+        d_model 4096, d_inner 8192), one selective-scan launch per layer of
+        the prefill; then (f) its logits checked and (g) its profile;
+  4. each kernel against its plain version at its main path's shapes, and
      its time beside the plain version's, a library call's where one exists
      and the card's bound for the same work.
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` name/power
@@ -94,13 +102,13 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def reference_small(dev) -> None:
-    """chatglm3 smoke model in f32: card (kernels) vs CPU (plain path)."""
+def reference_small(dev, arch: str) -> None:
+    """A smoke model in f32: card (kernels) vs CPU (plain path)."""
     from repro_torch.configs import get_smoke
     from repro_torch.models import build_model
     from repro_torch.serve.serve_step import generate
 
-    cfg = get_smoke("chatglm3-6b").scaled(remat=False, dtype="float32")
+    cfg = get_smoke(arch).scaled(remat=False, dtype="float32")
     cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
     card = build_model(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
@@ -113,7 +121,7 @@ def reference_small(dev) -> None:
     same = torch.equal(generate(card, toks, steps=8).cpu(),
                        generate(cpu, toks, steps=8))
     check(same, "small greedy tokens card == cpu")
-    log(f"[2] small reference: chatglm3 smoke f32 prefill logits card vs cpu "
+    log(f"[2] small reference: {arch} smoke f32 prefill logits card vs cpu "
         f"max_abs_err={err:.3g} (tol 1e-4); greedy tokens identical")
 
 
@@ -206,11 +214,13 @@ def device_tier(dev, out: dict):
     return prompt
 
 
-def serve_full(dev, prompt, out: dict):
+def serve_full(dev, arch: str, tag: str, prompt):
+    """Serve ``arch`` at full width and depth with bf16 weights from SEED;
+    returns (the result's numbers, the model)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    cfg = get_config("chatglm3-6b").scaled(remat=False, param_dtype="bfloat16")
+    cfg = get_config(arch).scaled(remat=False, param_dtype="bfloat16")
     steps = DECODE_STEPS + 1          # the prefill's token + 32 decode steps
     t0 = time.perf_counter()
     toks, t, model = serve.run(cfg, prompt, steps=steps, seed=SEED, device=dev)
@@ -224,17 +234,16 @@ def serve_full(dev, prompt, out: dict):
                decode_tok_s=b * DECODE_STEPS / t["decode_s"],
                e2e_tok_s=b * steps / (t["prefill_s"] + t["decode_s"]),
                params=model.param_count(), layers=cfg.num_layers)
-    out["serve"] = res
-    out["model"] = model
-    log(f"[3b] chatglm3-6b full width+depth ({cfg.num_layers} layers, "
+    log(f"[{tag}] {arch} full width+depth ({cfg.num_layers} layers, "
         f"{res['params'] / 1e9:.3f} B params in bf16), prompt {tuple(prompt.shape)}: "
         f"prefill {res['prefill_ms']:.2f} ms, decode {res['decode_ms_per_step']:.3f} "
         f"ms/step ({res['decode_tok_s']:.1f} tok/s over {DECODE_STEPS} steps x {b}), "
         f"end-to-end {res['e2e_tok_s']:.1f} tok/s; run() incl. init {total_s:.2f} s")
-    log(f"[3b] first sequence: {toks[0, :12].tolist()}")
+    log(f"[{tag}] first sequence: {toks[0, :12].tolist()}")
+    return res, model
 
 
-def full_width_logits(dev, model, prompt) -> None:
+def full_width_logits(tag: str, model, prompt) -> None:
     """Logits of the full model are finite and the greedy prefill token agrees
     with a teacher-forced run of the same prompt."""
     with torch.inference_mode():
@@ -244,14 +253,14 @@ def full_width_logits(dev, model, prompt) -> None:
     err = (logits.float() - full[:, -1].float()).abs().max().item()
     scale = full[:, -1].float().abs().max().item()
     check(err <= 1e-2 * max(1.0, scale), f"prefill vs logits_full err {err}")
-    log(f"[3c] full-width logits finite; prefill vs logits_full last position "
+    log(f"[{tag}] full-width logits finite; prefill vs logits_full last position "
         f"max_abs_err={err:.3g} (scale {scale:.3g})")
 
 
 def device_profile(fn):
     """Run ``fn`` under torch.profiler; return (device busy share of the
-    window spanned by its kernels, device busy ms, top kernels by device
-    time in ms)."""
+    window spanned by its kernels, device busy ms, device ms by kernel
+    name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -262,19 +271,18 @@ def device_profile(fn):
     spans = [(e.time_range.start, e.time_range.end, e.name)
              for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not spans:
-        return None, 0.0, []
+        return None, 0.0, {}
     busy = sum(end - start for start, end, _ in spans)
     window = max(e for _, e, _ in spans) - min(s for s, _, _ in spans)
     by_name: dict = {}
     for start, end, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return (busy / window, busy / 1e3,
-            [(n[:60], round(us / 1e3, 3)) for n, us in top])
+    return busy / window, busy / 1e3, {n: us / 1e3 for n, us in by_name.items()}
 
 
-def profile_serving(model, prompt) -> None:
-    """Warm prefill time, then device busy share and top kernels of one full
+def profile_serving(tag: str, model, prompt, kernel: str) -> dict:
+    """Warm prefill time, then device busy share, top kernels and the share
+    of the device time spent in the kernel named ``kernel`` of one full
     prefill and of 8 decode steps (outside the timed main path)."""
     state = {}
 
@@ -287,26 +295,35 @@ def profile_serving(model, prompt) -> None:
             logits, _ = model.decode_step(nxt, state["caches"], prompt.shape[1] + i)
             nxt = torch.argmax(logits, dim=-1)[:, None]
 
+    res = {}
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         prefill()
         torch.cuda.synchronize()
-        log(f"[3d] warm prefill {tuple(prompt.shape)}: "
-            f"{(time.perf_counter() - t0) * 1e3:.2f} ms host clock")
+        res["warm_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"[{tag}] warm prefill {tuple(prompt.shape)}: "
+            f"{res['warm_prefill_ms']:.2f} ms host clock")
         for name, fn in (("prefill", prefill), ("decode x8", decode)):
-            share, busy_ms, top = device_profile(fn)
+            share, busy_ms, by_name = device_profile(fn)
             if share is None:
-                log(f"[3d] {name}: profiler recorded no device time (not measured)")
-            else:
-                log(f"[3d] {name}: device busy {busy_ms:.3f} ms, {share:.3f} of the "
-                    f"kernel window (torch.profiler); top kernels (name, ms): {top}")
+                log(f"[{tag}] {name}: profiler recorded no device time (not measured)")
+                continue
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            k_ms = sum(ms for n, ms in by_name.items() if kernel in n)
+            res[name] = dict(busy_share=share, busy_ms=busy_ms, kernel_ms=k_ms)
+            log(f"[{tag}] {name}: device busy {busy_ms:.3f} ms, {share:.3f} of the "
+                f"kernel window (torch.profiler); {kernel} {k_ms:.3f} ms = "
+                f"{k_ms / busy_ms:.3f} of busy; top kernels (name, ms): "
+                f"{[(n[:60], round(ms, 3)) for n, ms in top]}")
+    return res
 
 
 def kernel_rows(dev, out: dict, launches: dict):
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant import dequant
     from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
 
     rows = []
     # K1 dequant at the fetched batch's shape (256, 150528) -> bf16
@@ -353,16 +370,58 @@ def kernel_rows(dev, out: dict, launches: dict):
         plain_ms=time_ms(lambda: ref.attention_ref(qa, ka, va), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: sdpa(qs, ks, vs, is_causal=True), 10)))
+
+    # K3 selective scan at falcon-mamba-7b's prefill shape: bf16 activations
+    # and parameters as on the path, inputs drawn as the model's init draws
+    # them (dt in [1e-3, 0.1], A = -(1..S)); then the same inputs in f32
+    b3, t3, d3, s3 = 4, 2048, 8192, 16
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    u = torch.randn((b3, t3, d3), generator=gen, device=dev)
+    dt = torch.exp(torch.rand((b3, t3, d3), generator=gen, device=dev) * 4.6 - 6.9)
+    b_in, c_in = (torch.randn((b3, t3, s3), generator=gen, device=dev)
+                  for _ in range(2))
+    a_log = torch.log(torch.arange(1, s3 + 1, device=dev, dtype=torch.float32)
+                      ).expand(d3, s3).contiguous()
+    d_skip = torch.ones((d3,), device=dev)
+    args32 = [u, dt, b_in, c_in, a_log, d_skip]
+    args16 = [x.to(torch.bfloat16) for x in args32]
+    errs = {}
+    for name, args in (("f32", args32), ("bf16", args16)):
+        got, want = ssm_scan(*args), ref.ssm_scan_ref(*args)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        errs[name] = max((g - w).abs().max().item() for g, w in zip(got, want))
+    del args32
+    nbytes = (sum(x.numel() * x.element_size() for x in args16)
+              + 4 * (b3 * t3 * d3 + b3 * d3 * s3))
+    # per (b, t, d, s): dt*A', exp, FMA into h, (dt*u)*B, FMA into y;
+    # per (b, t, d): dt*u, D*u and its add
+    ops_count = 7 * b3 * t3 * d3 * s3 + 3 * b3 * t3 * d3
+    b_ms, b_by = bound(nbytes, ops_count, PEAK_F32_FLOPS)
+    rows.append(dict(
+        name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:64", launches=launches["ssm_scan"],
+        max_abs_err=errs["bf16"], ms=time_ms(lambda: ssm_scan(*args16), 10),
+        plain_ms=time_ms(lambda: ref.ssm_scan_ref(*args16), 1, windows=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
     shapes = {"dequant": f"q {[n, f]} int8 -> bf16",
               "flash_attention": f"B,T,H,KV,dh={[B, T, H, KV, DH]} bf16 causal, "
                                  f"tol rtol=atol=2e-2; SDPA vs plain max_abs_err "
-                                 f"{lib_err:.3g}"}
+                                 f"{lib_err:.3g}",
+              "ssm_scan": f"B,T,D,S={[b3, t3, d3, s3]} bf16 in, f32 out, tol "
+                          f"rtol=atol=1e-4; f32 inputs max_abs_err "
+                          f"{errs['f32']:.3g}"}
     for r in rows:
         log(f"[4] {r['name']} {shapes[r['name']]}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
             f"{r['max_abs_err']:.3g}, launches on the main path {r['launches']}")
     return rows
+
+
+def zero_counts(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
 
 
 def main() -> int:
@@ -373,7 +432,9 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.dequant import dequant
     from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
 
+    kernels = (dequant, flash_attention, ssm_scan)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -381,7 +442,7 @@ def main() -> int:
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"card {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    reports = _build.build(["dequant", "flash_attn_fwd"])
+    reports = _build.build(["dequant", "flash_attn_fwd", "ssm_scan"])
     log(f"[1] built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
@@ -389,29 +450,46 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[1]   {name}: {line.strip()}")
 
-    reference_small(dev)
+    reference_small(dev, "chatglm3-6b")
+    reference_small(dev, "falcon-mamba-7b")
 
+    # slice 1's path: the device tier feeding chatglm3-6b serving
     out: dict = {}
     torch.cuda.reset_peak_memory_stats()
-    dequant.launches = 0
-    flash_attention.launches = 0
+    zero_counts(kernels)
     prompt = device_tier(dev, out)
-    serve_full(dev, prompt, out)
-    launches = {"dequant": dequant.launches,
-                "flash_attention": flash_attention.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    layers = out["serve"]["layers"]
-    log(f"[3] main path launches {launches}; peak device memory {peak_gb:.2f} GB")
+    glm, model = serve_full(dev, "chatglm3-6b", "3b", prompt)
+    launches = {k.__name__: k.launches for k in kernels}
+    glm["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[3] device tier + chatglm3-6b launches {launches}; peak device memory "
+        f"{glm['peak_mem_gb']:.2f} GB")
     check(launches["dequant"] >= 1, "dequant kernel launched on the main path")
-    check(launches["flash_attention"] == layers,
-          f"flash kernel launched once per layer of the one prefill ({layers})")
+    check(launches["flash_attention"] == glm["layers"],
+          f"flash kernel launched once per layer of the one prefill ({glm['layers']})")
+    full_width_logits("3c", model, prompt)
+    glm["profile"] = profile_serving("3d", model, prompt, "flash_fwd")
+    del model
+    torch.cuda.empty_cache()
 
-    full_width_logits(dev, out["model"], prompt)
-    profile_serving(out.pop("model"), prompt)
+    # the ssm path: falcon-mamba-7b serving the same prompt, stores resident
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    fm, model = serve_full(dev, "falcon-mamba-7b", "3e", prompt)
+    fm_launches = {k.__name__: k.launches for k in kernels}
+    fm["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[3e] falcon-mamba-7b launches {fm_launches}; peak device memory "
+        f"{fm['peak_mem_gb']:.2f} GB (stores resident)")
+    check(fm_launches["ssm_scan"] == fm["layers"],
+          f"ssm_scan kernel launched once per layer of the one prefill ({fm['layers']})")
+    launches["ssm_scan"] = fm_launches["ssm_scan"]
+    full_width_logits("3f", model, prompt)
+    fm["profile"] = profile_serving("3g", model, prompt, "ssm_scan_kernel")
+    del model
     del out["stores"]
     torch.cuda.empty_cache()
+
     rows = kernel_rows(dev, out, launches)
-    log("[5] " + json.dumps({"serve": out["serve"], "peak_mem_gb": peak_gb,
+    log("[5] " + json.dumps({"serve": {"chatglm3-6b": glm, "falcon-mamba-7b": fm},
                              "fetch_decode_ms": out["fetch_decode_ms"]}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)

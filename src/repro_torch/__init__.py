@@ -1,10 +1,11 @@
-"""PyTorch/CUDA port of the FanStore device tier and its dense-LM consumer.
+"""PyTorch/CUDA port of the FanStore device tier and its LM consumers (the
+dense and ssm families, served).
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 layout (``configs``, ``core``, ``kernels``, ``models``, ``serve``,
-``launch``) and imports nothing from it. The two Pallas kernels on this
-path are hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc``
-at first use and loaded with ``ctypes``.
+``launch``) and imports nothing from it. The three Pallas kernels of the
+reference are hand-written CUDA C++ for Hopper here (``csrc/``), built with
+``nvcc`` at first use and loaded with ``ctypes``.
 
 Device policy: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``. A CUDA request on a machine without a card raises; nothing

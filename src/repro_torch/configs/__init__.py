@@ -1,4 +1,4 @@
-"""Config registry of the port: the four dense architectures.
+"""Config registry of the port: the four dense architectures and the ssm one.
 
 ``get_config(name)`` returns the full published config; ``get_smoke(name)``
 the reduced same-family config the CPU tests use. The other architectures
@@ -17,6 +17,7 @@ ARCH_IDS: List[str] = [
     "qwen2-72b",
     "qwen1.5-32b",
     "nemotron-4-15b",
+    "falcon-mamba-7b",
 ]
 
 _MODULES = {
@@ -24,12 +25,12 @@ _MODULES = {
     "qwen2-72b": "qwen2_72b",
     "qwen1.5-32b": "qwen1_5_32b",
     "nemotron-4-15b": "nemotron_4_15b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 # architectures of the reference package that wait for a later slice
 _NOT_YET: Dict[str, str] = {
-    "falcon-mamba-7b": "ssm family: ROADMAP Queue 1 M11 (with kernel K3)",
-    "hymba-1.5b": "hybrid family: ROADMAP Queue 1 M11 (with kernel K3)",
+    "hymba-1.5b": "hybrid family: ROADMAP Queue 1 M11b (models/hybrid.py)",
     "granite-moe-3b-a800m": "moe family: ROADMAP Queue 1 M10",
     "deepseek-v2-236b": "moe/MLA family: ROADMAP Queue 1 M10",
     "musicgen-large": "audio family: ROADMAP Queue 1 M12",

@@ -2,6 +2,7 @@
 
   dequant     the fetch path's decode (block dequant, memory-bound)
   flash_attn  causal GQA attention for the prefill path (forward)
+  ssm_scan    the Mamba-1 selective scan for the ssm prefill path
 
 Each kernel is a CUDA C++ source in ``repro_torch/csrc`` with a plain C
 entry point, built by ``_build`` with nvcc at first use and called through

@@ -10,13 +10,14 @@ raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.dequant import dequant as dequant_kernel
 from repro_torch.kernels.flash_attn import flash_attention as flash_kernel
+from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
 
 
 def _pick(t: torch.Tensor, impl: Optional[str]) -> str:
@@ -40,3 +41,11 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale)
     return flash_kernel(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def ssm_scan(u, dt, b_in, c_in, a_log, d_skip, *,
+             impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan from a zero state -> (y (B, T, D) f32, h_final (B, D, S) f32)."""
+    if _pick(u, impl) == "ref":
+        return ref.ssm_scan_ref(u, dt, b_in, c_in, a_log, d_skip)
+    return ssm_kernel(u, dt, b_in, c_in, a_log, d_skip)

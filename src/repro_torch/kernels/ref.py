@@ -7,7 +7,7 @@ against them on the card.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,6 +23,38 @@ def dequant_ref(q: torch.Tensor, scales: torch.Tensor, *, block: int = 256,
     xb = q.reshape(n, f // block, block).to(torch.float32)
     out = xb * scales.to(torch.float32)[..., None]
     return out.reshape(n, f).to(out_dtype)
+
+
+def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b_in: torch.Tensor,
+                 c_in: torch.Tensor, a_log: torch.Tensor, d_skip: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential Mamba-1 selective scan with an f32 state.
+
+    u, dt: (B, T, D); b_in, c_in: (B, T, S); a_log: (D, S); d_skip: (D,);
+    h0: (B, D, S) initial state (zeros when None). Per step
+    ``h = exp(dt * A) * h + (dt * u) * B`` and ``y = h . C + D * u`` with
+    ``A = -exp(a_log)``. Returns (y (B, T, D) f32, h_final (B, D, S) f32).
+
+    Every input is widened to f32 before any arithmetic, as the TPU kernel
+    and the JAX models' scans do. One deliberate difference from
+    ``repro.kernels.ref.ssm_scan_ref``: that one multiplies ``dt * u`` in
+    the input dtype and widens after, so with bf16 inputs it rounds the
+    product once more; in f32 the two compute the same thing.
+    """
+    bsz, t, d = u.shape
+    a = -torch.exp(a_log.float())
+    uf, dtf, bf, cf = u.float(), dt.float(), b_in.float(), c_in.float()
+    h = (u.new_zeros((bsz, d, b_in.shape[-1]), dtype=torch.float32)
+         if h0 is None else h0.float())
+    y = torch.empty((bsz, t, d), dtype=torch.float32, device=u.device)
+    for i in range(t):
+        dti = dtf[:, i]
+        a_bar = torch.exp(dti[..., None] * a)
+        bu = (dti * uf[:, i])[..., None] * bf[:, i, None, :]
+        h = a_bar * h + bu
+        y[:, i] = torch.einsum("bds,bs->bd", h, cf[:, i])
+    return y + uf * d_skip.float(), h
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -5,6 +5,7 @@ Counterpart of ``repro.launch.serve`` with the same flags plus ``--device``
 drawn from ``--seed``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b --steps 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --preset full
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --prompt-len 8
 """
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 The JAX ``Model.init`` returns a pytree whose per-layer leaves are stacked
 on a leading layer axis, one stack per segment (e.g.
-``segments[0]["attn"]["wq"]`` is (L, d, H, dh)). ``params_from_jax`` takes
+``segments[0]["attn"]["wq"]`` is (L, d, H, dh), ``segments[0]["mixer"]["a_log"]``
+(L, di, S)). ``params_from_jax`` takes
 that tree as NumPy arrays and returns the port's state dict, layer by layer
 in segment order; ``Model.load_state_dict`` then copies it onto the model's
 device and parameter dtype. The tests use it so both packages compute from
@@ -29,8 +30,9 @@ def _leaves(tree: Mapping[str, Any], prefix: str = ""):
 
 def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig
                     ) -> Dict[str, torch.Tensor]:
-    """JAX dense-model params (NumPy leaves) -> the port's state dict."""
-    if cfg.family != "dense":
+    """JAX dense- or ssm-model params (NumPy leaves) -> the port's state
+    dict. Tied embeddings have no ``out_embed`` on either side."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     sd: Dict[str, torch.Tensor] = {}
     for key in ("embed", "out_embed"):

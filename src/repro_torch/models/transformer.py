@@ -1,16 +1,20 @@
-"""Decoder LM of the ``dense`` family (counterpart of ``repro.models.transformer``).
+"""Decoder LM of the ``dense`` and ``ssm`` families (counterpart of
+``repro.models.transformer``).
 
 The reference stacks each segment's layers on a leading axis and runs them
-with ``lax.scan``; here the layers are a ``ModuleList`` of ``DenseBlock``s
-walked by a Python loop. Entry points mirror the reference's ``Model``:
-``logits_full`` (teacher-forced), ``prefill`` (last-position logits plus the
-KV caches) and ``decode_step`` (one token against the caches).
+with ``lax.scan``; here the layers are a ``ModuleList`` of blocks
+(``DenseBlock`` for ``dense``, ``MambaBlock`` for ``ssm``) walked by a Python
+loop. Entry points mirror the reference's ``Model``: ``logits_full``
+(teacher-forced), ``prefill`` (last-position logits plus the caches) and
+``decode_step`` (one token against the caches).
 
-Caches are a list with one ``{"k", "v"}`` dict per layer, each
-(B, size, KV, dh) in the activation dtype, where ``size`` is ``max_len`` for
-global layers and ``min(max_len, window)`` for sliding-window layers (a ring:
-position p sits at slot p % size). ``decode_step`` writes the new position
-into the caches in place, where the reference returns updated copies.
+Caches are a list with one dict per layer. A dense layer's is ``{"k", "v"}``,
+each (B, size, KV, dh) in the activation dtype, where ``size`` is ``max_len``
+for global layers and ``min(max_len, window)`` for sliding-window layers (a
+ring: position p sits at slot p % size). A mamba layer's is ``{"h": (B, di, S)
+f32, "conv": (B, K-1, di)}``, whatever ``max_len``. ``decode_step`` writes
+the new position into the caches in place, where the reference returns
+updated copies.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (MLP, Attention, Norm, decode_attention,
                                        rope_table)
+from repro_torch.models.mamba import MambaMixer
 
 Cache = Dict[str, torch.Tensor]
 
@@ -68,13 +73,21 @@ class DenseBlock(nn.Module):
         self.norm2.reset_parameters()
         self.mlp.reset_parameters(gen)
 
-    def forward(self, x, cos, sin
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def _run(self, x, cos, sin
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Full-sequence block; returns (x, k, v) so prefill can cache k/v."""
         q, k, v = self.attn.qkv(self.norm1(x), cos, sin)
         a = ops.attention(q, k, v, causal=True, window=self.window)
         x = x + self.attn.out(a, x.dtype)
         return x + self.mlp(self.norm2(x)), k, v
+
+    def forward(self, x, cos, sin) -> torch.Tensor:
+        return self._run(x, cos, sin)[0]
+
+    def prefill(self, x, cos, sin, max_len: int) -> Tuple[torch.Tensor, Cache]:
+        x, k, v = self._run(x, cos, sin)
+        size = max_len if self.window is None else min(max_len, self.window)
+        return x, ring_fill(k, v, size, x.dtype)
 
     def decode(self, x, cos, sin, cache: Cache, cache_len: int
                ) -> torch.Tensor:
@@ -88,16 +101,43 @@ class DenseBlock(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba-1 block, ``x + mixer(norm1(x))`` (no MLP). It takes
+    ``DenseBlock``'s arguments so ``Model`` walks either kind alike; the
+    rope tables, ``max_len`` and ``cache_len`` mean nothing to it."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        self.norm1 = Norm(cfg, cfg.d_model, device=device, dtype=dtype)
+        self.mixer = MambaMixer(cfg, device=device, dtype=dtype)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.norm1.reset_parameters()
+        self.mixer.reset_parameters(gen)
+
+    def forward(self, x, cos, sin) -> torch.Tensor:
+        return x + self.mixer(self.norm1(x))
+
+    def prefill(self, x, cos, sin, max_len: int) -> Tuple[torch.Tensor, Cache]:
+        out, cache = self.mixer.prefill(self.norm1(x))
+        return x + out, cache
+
+    def decode(self, x, cos, sin, cache: Cache, cache_len: int
+               ) -> torch.Tensor:
+        return x + self.mixer.decode(self.norm1(x), cache)
+
+
 class Model(nn.Module):
-    """Config-driven dense LM with teacher-forced / prefill / decode entry
-    points. Parameters live on ``device`` in ``cfg.param_dtype``."""
+    """Config-driven dense or ssm LM with teacher-forced / prefill / decode
+    entry points. Parameters live on ``device`` in ``cfg.param_dtype``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported to repro_torch yet "
-                "(ROADMAP Queue 1 M10-M12); only 'dense' runs")
+                "(ROADMAP Queue 1: hybrid M11b, moe M10, audio/vlm M12); "
+                "'dense' and 'ssm' run")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -111,7 +151,8 @@ class Model(nn.Module):
             requires_grad=False)
         self.final_norm = Norm(cfg, cfg.d_model, device=dev, dtype=pdt)
         self.layers = nn.ModuleList(
-            DenseBlock(cfg, layer_window(cfg, i), device=dev, dtype=pdt)
+            MambaBlock(cfg, device=dev, dtype=pdt) if cfg.family == "ssm"
+            else DenseBlock(cfg, layer_window(cfg, i), device=dev, dtype=pdt)
             for i in range(cfg.num_layers))
 
     # -- init ----------------------------------------------------------------
@@ -136,11 +177,10 @@ class Model(nn.Module):
         return x @ emb.to(x.dtype).T
 
     def _rope(self, b: int, start: int, t: int):
+        if self.cfg.attention_free:
+            return None, None
         pos = torch.arange(start, start + t, device=self.device)
         return rope_table(self.cfg, pos[None].expand(b, t))
-
-    def cache_size(self, layer: DenseBlock, max_len: int) -> int:
-        return max_len if layer.window is None else min(max_len, layer.window)
 
     # -- entry points ------------------------------------------------------------
     def logits_full(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -148,7 +188,7 @@ class Model(nn.Module):
         x = self._embed(tokens)
         cos, sin = self._rope(tokens.shape[0], 0, tokens.shape[1])
         for layer in self.layers:
-            x, _, _ = layer(x, cos, sin)
+            x = layer(x, cos, sin)
         return self._logits(self.final_norm(x))
 
     def prefill(self, tokens: torch.Tensor, max_len: int
@@ -158,9 +198,8 @@ class Model(nn.Module):
         cos, sin = self._rope(tokens.shape[0], 0, tokens.shape[1])
         caches = []
         for layer in self.layers:
-            x, k, v = layer(x, cos, sin)
-            caches.append(ring_fill(k, v, self.cache_size(layer, max_len),
-                                    self.dtype))
+            x, cache = layer.prefill(x, cos, sin, max_len)
+            caches.append(cache)
         x = self.final_norm(x[:, -1:])
         return self._logits(x)[:, 0], caches
 

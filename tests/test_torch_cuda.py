@@ -9,8 +9,11 @@ even on both sides); f32 flash attention within 1e-5 (f32 FMAs against
 cuBLAS f32 products, summed in another order); bf16 flash attention (tensor
 cores) within 2e-2 (P rounded to bf16 before P.V on both sides, but the
 kernel rounds the running-max-relative P and the plain version the
-normalised one). The model on the card in f32 matches its CPU run within
-1e-4 and greedy tokens match.
+normalised one). The selective scan within rtol = atol = 1e-4 in both
+dtypes: bf16 inputs are widened to f32 exactly on both sides before any
+arithmetic, so only f32 rounding differs (exp2 with log2(e) folded into A
+against exp, sums in another order). The models on the card in f32 match
+their CPU runs within 1e-4 and greedy tokens match.
 """
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from repro_torch.core import DeviceStore, DeviceStoreConfig, decode_records
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dequant import dequant as dequant_kernel
 from repro_torch.kernels.flash_attn import flash_attention as flash_kernel
+from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
 from repro_torch.models import build_model
 from repro_torch.serve.serve_step import generate
 
@@ -118,14 +122,80 @@ def test_flash_attention_kernel_refuses_bad_input(cuda):
         ops.attention(x, x, x)
 
 
+SSM = dict(rtol=1e-4, atol=1e-4)
+SSM_SHAPES = [
+    # b, t, d, s
+    (2, 64, 64, 16),
+    (1, 100, 200, 8),       # ragged T (not a multiple of 32) and D (of 64)
+    (2, 33, 3200, 16),      # hymba's d_inner, which no 512-wide tile divides
+    (1, 1, 8, 16),          # one step
+    (3, 70, 96, 5),         # S not a multiple of the 4 states per lane
+]
+
+
+def _ssm_args(dev, b, t, d, s, dtype, param_dtype, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    u = torch.randn((b, t, d), generator=gen, device=dev)
+    dt = torch.exp(torch.rand((b, t, d), generator=gen, device=dev) * 4.6 - 6.9)
+    b_in, c_in = (torch.randn((b, t, s), generator=gen, device=dev)
+                  for _ in range(2))
+    a_log = torch.log(torch.arange(1, s + 1, device=dev, dtype=torch.float32)
+                      ).expand(d, s) + 0.1 * torch.randn((d, s), generator=gen,
+                                                          device=dev)
+    d_skip = torch.randn((d,), generator=gen, device=dev)
+    return ([x.to(dtype) for x in (u, dt, b_in, c_in)]
+            + [x.to(param_dtype) for x in (a_log, d_skip)])
+
+
+@pytest.mark.parametrize("b,t,d,s", SSM_SHAPES)
+@pytest.mark.parametrize("dtype,param_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_ssm_scan_kernel_vs_plain(cuda, b, t, d, s, dtype, param_dtype):
+    args = _ssm_args(cuda, b, t, d, s, dtype, param_dtype)
+    before = ssm_kernel.launches
+    y, h = ops.ssm_scan(*args)
+    assert ssm_kernel.launches == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    assert tuple(y.shape) == (b, t, d) and tuple(h.shape) == (b, d, s)
+    wy, wh = ref.ssm_scan_ref(*args)
+    torch.testing.assert_close(y, wy, **SSM)
+    torch.testing.assert_close(h, wh, **SSM)
+
+
+def test_ssm_scan_kernel_refuses_bad_input(cuda):
+    args = _ssm_args(cuda, 1, 8, 16, 16, torch.bfloat16, torch.float32)
+    u, dt, b_in, c_in, a_log, d_skip = args
+    before = ssm_kernel.launches
+    with pytest.raises(ValueError, match="dtype"):
+        ops.ssm_scan(u.float(), dt, b_in, c_in, a_log, d_skip)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.ssm_scan(u, dt, b_in, c_in, a_log[:8].contiguous(), d_skip)
+    with pytest.raises(ValueError, match="S must be"):
+        wide = torch.zeros((1, 8, 17), device=cuda, dtype=torch.bfloat16)
+        ops.ssm_scan(u, dt, wide, wide, torch.zeros((16, 17), device=cuda),
+                     d_skip)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssm_scan(u, dt.transpose(1, 2).contiguous().transpose(1, 2)[:, :8],
+                     b_in, c_in, a_log, d_skip)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(8 * 16 + 1, device=cuda, dtype=torch.bfloat16)
+        ops.ssm_scan(flat[1:].view(1, 8, 16), dt, b_in, c_in, a_log, d_skip)
+    assert ssm_kernel.launches == before
+
+
 def test_kernels_skip_empty_inputs(cuda):
-    before = (dequant_kernel.launches, flash_kernel.launches)
+    before = (dequant_kernel.launches, flash_kernel.launches, ssm_kernel.launches)
     got = ops.dequant(torch.zeros((0, 256), dtype=torch.int8, device=cuda),
                       torch.zeros((0, 1), dtype=torch.float16, device=cuda))
     assert tuple(got.shape) == (0, 256)
     x = torch.zeros((2, 0, 4, 16), dtype=torch.bfloat16, device=cuda)
     assert tuple(ops.attention(x, x, x).shape) == (2, 0, 4, 16)
-    assert (dequant_kernel.launches, flash_kernel.launches) == before
+    args = _ssm_args(cuda, 2, 0, 32, 16, torch.bfloat16, torch.bfloat16)
+    y, h = ops.ssm_scan(*args)
+    assert tuple(y.shape) == (2, 0, 32) and torch.equal(h, torch.zeros_like(h))
+    assert (dequant_kernel.launches, flash_kernel.launches,
+            ssm_kernel.launches) == before
 
 
 def test_device_tier_on_card_matches_cpu(cuda):
@@ -146,16 +216,18 @@ def test_device_tier_on_card_matches_cpu(cuda):
     assert out["cuda"][1].item()                    # cap 8 < 16 requests
 
 
-def test_model_on_card_matches_cpu(cuda):
-    cfg = get_smoke("chatglm3-6b").scaled(remat=False, dtype="float32")
+@pytest.mark.parametrize("arch,kernel", [("chatglm3-6b", flash_kernel),
+                                         ("falcon-mamba-7b", ssm_kernel)])
+def test_model_on_card_matches_cpu(cuda, arch, kernel):
+    cfg = get_smoke(arch).scaled(remat=False, dtype="float32")
     cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     card = build_model(cfg, device=cuda)
     card.load_state_dict(cpu.state_dict())
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 100)).astype(np.int32))
-    before = flash_kernel.launches
+    before = kernel.launches
     lc, _ = card.prefill(toks.to(cuda), 110)
-    assert flash_kernel.launches == before + cfg.num_layers
+    assert kernel.launches == before + cfg.num_layers
     lp, _ = cpu.prefill(toks, 110)
     torch.testing.assert_close(lc.cpu(), lp, rtol=1e-4, atol=1e-4)
     assert torch.equal(generate(card, toks, steps=6).cpu(),

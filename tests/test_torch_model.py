@@ -1,6 +1,7 @@
-"""Dense LM: the PyTorch port against the JAX reference from identical weights.
+"""Dense and ssm LMs: the PyTorch port against the JAX reference from
+identical weights.
 
-For each dense smoke config (float32 activations), the JAX ``Model.init``
+For each ported smoke config (float32 activations), the JAX ``Model.init``
 pytree is converted with ``params_from_jax`` and both packages run the same
 numpy tokens. Logits and caches must agree within 1e-4 (f32, sums taken in
 another order); greedy tokens must be identical.
@@ -23,7 +24,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.serve_step import generate
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-B, T, DECODE = 2, 12, 4
+B, T, DECODE = 2, 12, 8
 
 CASES = {arch: {} for arch in ARCH_IDS}
 # a dense model with a sliding-window layer exercises the ring cache
@@ -84,8 +85,9 @@ def test_prefill_logits_and_caches(pair):
     _close(tl, jl)
     jc = _segment_caches(jc, jmodel)
     assert len(tc) == len(jc)
+    keys = {"ssm": {"h", "conv"}}.get(model.cfg.family, {"k", "v"})
     for a, b in zip(tc, jc):
-        assert set(a) == set(b) == {"k", "v"}
+        assert set(a) == set(b) == keys
         for key in a:
             assert tuple(a[key].shape) == b[key].shape
             _close(a[key], b[key])
@@ -104,8 +106,8 @@ def test_decode_steps(pair):
         tl, tc = model.decode_step(torch.from_numpy(nt), tc, T + s)
         _close(tl, jl)
     for a, b in zip(tc, _segment_caches(jc, jmodel)):
-        _close(a["k"], b["k"])
-        _close(a["v"], b["v"])
+        for key in a:
+            _close(a[key], b[key])
 
 
 def test_generate_tokens_identical(pair):

@@ -11,6 +11,7 @@ from repro_torch.core import DeviceStore, DeviceStoreConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.dequant import dequant as dequant_kernel
 from repro_torch.kernels.flash_attn import flash_attention as flash_kernel
+from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
 from repro_torch.launch import serve
 from repro_torch.models import build_model
 
@@ -62,7 +63,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros((2, 256), dtype=torch.int8)
     s = torch.ones((2, 1), dtype=torch.float16)
     x = torch.zeros((1, 8, 2, 16))
-    before = (dequant_kernel.launches, flash_kernel.launches)
+    u, bc, a = torch.zeros((1, 8, 4)), torch.zeros((1, 8, 2)), torch.zeros((4, 2))
+    before = (dequant_kernel.launches, flash_kernel.launches, ssm_kernel.launches)
     with pytest.raises(ValueError, match="CUDA"):
         ops.dequant(q, s, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
@@ -71,14 +73,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ops.attention(x, x, x, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         flash_kernel(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssm_scan(u, u, bc, bc, a, a[:, 0], impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_kernel(u, u, bc, bc, a, a[:, 0])
     with pytest.raises(ValueError):
         ops.attention(x, x, x, impl="interpret")
-    assert (dequant_kernel.launches, flash_kernel.launches) == before
+    assert (dequant_kernel.launches, flash_kernel.launches,
+            ssm_kernel.launches) == before
     # auto dispatch on CPU tensors is the plain version
     assert ops.dequant(q, s).dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b",
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "hymba-1.5b",
                                   "deepseek-v2-236b", "internvl2-76b"])
 def test_unported_archs_name_the_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

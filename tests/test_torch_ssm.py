@@ -1,0 +1,165 @@
+"""The ssm family of the port against the JAX reference on the CPU: the plain
+selective scan, the causal conv, the Mamba-1 mixer and `launch.serve`.
+The falcon-mamba model as a whole (logits, prefill caches, decode steps,
+greedy tokens) is one of the parametrised archs of ``test_torch_model.py``;
+the CUDA kernel against the plain scan is in ``test_torch_cuda.py``.
+
+Tolerances: in f32 the port's plain scan agrees with the Pallas kernel (run in
+interpret mode) and with ``repro.kernels.ref.ssm_scan_ref`` within
+rtol = atol = 3e-5, the bound ``tests/test_kernels.py`` holds them to (the
+same f32 arithmetic, sums in another order). With bf16 inputs it agrees with
+the Pallas kernel within 1e-3, since both widen every input to f32 before
+any arithmetic, but only within 2e-2 with ``repro.kernels.ref``, which
+rounds ``dt * u`` to bf16 first: that is the one deliberate difference. The
+conv and the mixer in f32 agree within 1e-5 (the same ops; the reference's
+prefill scan is an associative scan, summed in another order).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke as jax_get_smoke
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro.models import mamba as jax_mamba
+from repro.models.transformer import _mamba_prefill
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.kernels import ops, ref
+from repro_torch.launch import serve
+from repro_torch.models import build_model
+from repro_torch.models.mamba import MambaMixer, causal_conv
+
+F32 = dict(rtol=3e-5, atol=3e-5)
+MIXER = dict(rtol=1e-5, atol=1e-5)
+
+
+def _scan_inputs(rng, b, t, d, s):
+    return (rng.standard_normal((b, t, d)).astype(np.float32),
+            (rng.random((b, t, d)) * 0.3).astype(np.float32),
+            rng.standard_normal((b, t, s)).astype(np.float32),
+            rng.standard_normal((b, t, s)).astype(np.float32),
+            np.log(np.tile(np.arange(1, s + 1, dtype=np.float32)[None], (d, 1))),
+            rng.standard_normal(d).astype(np.float32))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("b,t,d,s,bd,tc", [
+    (1, 32, 16, 8, 16, 32),
+    (2, 64, 32, 8, 16, 16),
+    (2, 128, 64, 16, 32, 32),
+])
+def test_ssm_scan_plain_vs_reference_and_pallas(rng, b, t, d, s, bd, tc):
+    args = _scan_inputs(rng, b, t, d, s)
+    y, h = ops.ssm_scan(*map(torch.from_numpy, args))
+    assert y.dtype == h.dtype == torch.float32
+    jargs = list(map(jnp.asarray, args))
+    for want in (jax_ops.ssm_scan(*jargs, impl="interpret", block_d=bd,
+                                  time_chunk=tc),
+                 jax_ref.ssm_scan_ref(*jargs)):
+        _close(y, want[0], F32)
+        _close(h, want[1], F32)
+
+
+def test_ssm_scan_plain_with_initial_state(rng):
+    args = _scan_inputs(rng, 2, 24, 16, 8)
+    h0 = rng.standard_normal((2, 16, 8)).astype(np.float32)
+    y, h = ref.ssm_scan_ref(*map(torch.from_numpy, args), h0=torch.from_numpy(h0))
+    want = jax_ref.ssm_scan_ref(*map(jnp.asarray, args), h0=jnp.asarray(h0))
+    _close(y, want[0], F32)
+    _close(h, want[1], F32)
+
+
+def test_ssm_scan_plain_bf16_widens_before_the_product(rng):
+    u, dt, b_in, c_in, a_log, d_skip = _scan_inputs(rng, 1, 32, 16, 8)
+    bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (u, dt, b_in, c_in)]
+    y, h = ops.ssm_scan(*bf, torch.from_numpy(a_log), torch.from_numpy(d_skip))
+    jbf = [jnp.asarray(x, jnp.bfloat16) for x in (u, dt, b_in, c_in)]
+    jp = (jnp.asarray(a_log), jnp.asarray(d_skip))
+    pallas = jax_ops.ssm_scan(*jbf, *jp, impl="interpret", block_d=16,
+                              time_chunk=16)
+    _close(y, pallas[0], dict(rtol=1e-3, atol=1e-3))
+    _close(h, pallas[1], dict(rtol=1e-3, atol=1e-3))
+    jref = jax_ref.ssm_scan_ref(*jbf, *jp)
+    _close(y, jref[0], dict(rtol=2e-2, atol=2e-2))
+    # the reference rounds dt * u to bf16 before widening; the port does not
+    assert not np.array_equal(y.numpy(), np.asarray(jref[0]))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("t", [1, 2, 9])
+def test_causal_conv_vs_reference(rng, with_state, t):
+    u = rng.standard_normal((2, t, 12)).astype(np.float32)
+    w = rng.standard_normal((4, 12)).astype(np.float32)
+    b = rng.standard_normal(12).astype(np.float32)
+    st = rng.standard_normal((2, 3, 12)).astype(np.float32) if with_state else None
+    got = causal_conv(*map(torch.from_numpy, (u, w, b)),
+                      None if st is None else torch.from_numpy(st))
+    want = jax_mamba._causal_conv(*map(jnp.asarray, (u, w, b)),
+                                  None if st is None else jnp.asarray(st))
+    for g, wnt in zip(got, want):
+        assert tuple(g.shape) == wnt.shape
+        _close(g, wnt, MIXER)
+
+
+@pytest.fixture(scope="module")
+def mixer_pair():
+    over = dict(remat=False, dtype="float32")
+    jcfg = jax_get_smoke("falcon-mamba-7b").scaled(**over)
+    params = jax_mamba.mamba_params(jax.random.key(3), jcfg)
+    cfg = get_smoke("falcon-mamba-7b").scaled(**over)
+    mixer = MambaMixer(cfg, device="cpu", dtype=torch.float32)
+    mixer.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in params.items()})
+    return jcfg, params, mixer
+
+
+@pytest.mark.parametrize("t", [2, 17])
+def test_mixer_forward_prefill_decode_vs_reference(rng, mixer_pair, t):
+    """T = 2 < K - 1 left-pads the conv tail, as the reference does."""
+    jcfg, params, mixer = mixer_pair
+    x = rng.standard_normal((2, t + 3, jcfg.d_model)).astype(np.float32)
+    prompt, steps = x[:, :t], x[:, t:]
+    _close(mixer(torch.from_numpy(prompt)),
+           jax_mamba.apply_mamba(params, jnp.asarray(prompt), jcfg), MIXER)
+    out, cache = mixer.prefill(torch.from_numpy(prompt))
+    jout, jcache = _mamba_prefill(params, jnp.asarray(prompt), jcfg)
+    _close(out, jout, MIXER)
+    assert set(cache) == {"h", "conv"}
+    for key in cache:
+        assert tuple(cache[key].shape) == jcache[key].shape
+        _close(cache[key], jcache[key], MIXER)
+    jstate = {"h": jcache["h"], "conv": jcache["conv"]}
+    for i in range(steps.shape[1]):
+        xi = steps[:, i:i + 1]
+        got = mixer.decode(torch.from_numpy(xi), cache)
+        want, jstate = jax_mamba.apply_mamba_decode(params, jnp.asarray(xi),
+                                                    jstate, jcfg)
+        _close(got, want, MIXER)
+        for key in cache:
+            _close(cache[key], jstate[key], MIXER)
+
+
+def test_serve_main_falcon_mamba_on_cpu(capsys):
+    out = serve.main(["--arch", "falcon-mamba-7b", "--device", "cpu",
+                      "--prompt-len", "8", "--steps", "4", "--batch", "2"])
+    assert tuple(out.shape) == (2, 4) and out.dtype == torch.int32
+    assert int(out.max()) < get_smoke("falcon-mamba-7b").vocab_size
+    assert "falcon-mamba-7b on cpu: generated (2, 4)" in capsys.readouterr().out
+
+
+def test_full_falcon_mamba_config_shape():
+    cfg = get_config("falcon-mamba-7b")
+    assert (cfg.num_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+            cfg.ssm_conv, cfg.dt_rank, cfg.vocab_size) == (64, 4096, 8192, 16,
+                                                           4, 256, 65024)
+    model = build_model(cfg.scaled(num_layers=1), device="meta")
+    per_layer = sum(p.numel() for p in model.layers[0].parameters())
+    assert model.out_embed is None                  # tied embeddings
+    total = cfg.vocab_size * cfg.d_model + cfg.d_model + 64 * per_layer
+    assert 7.0e9 < total < 7.01e9
