@@ -28,7 +28,9 @@ Phases, each of which raises on a failed check:
         the prefill; then (f) its logits checked and (g) its profile;
   4. each kernel against its plain version at its main path's shapes, and
      its time beside the plain version's, a library call's where one exists
-     and the card's bound for the same work.
+     and the card's bound for the same work (for K2 also its TFLOP/s and
+     share of the bound); K2 also against its plain version at
+     hymba-1.5b's attention shape (dh 64, GQA group 5, window 1024).
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` name/power
 line and ``{"ok": true, "device": ...}``. Without a card, or without the rest
 of the repository, it exits non-zero and prints no result.
@@ -361,15 +363,28 @@ def kernel_rows(dev, out: dict, launches: dict):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = sdpa(qs, ks, vs, is_causal=True).transpose(1, 2)
     lib_err = (lib.float() - want.float()).abs().max().item()
+    k2_ms = time_ms(lambda: flash_attention(qa, ka, va), 10)
     rows.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attn_fwd.cu",
         replaces="src/repro/kernels/flash_attn.py:86",
-        launches=launches["flash_attention"], max_abs_err=err,
-        ms=time_ms(lambda: flash_attention(qa, ka, va), 10),
+        launches=launches["flash_attention"], max_abs_err=err, ms=k2_ms,
         plain_ms=time_ms(lambda: ref.attention_ref(qa, ka, va), 2),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: sdpa(qs, ks, vs, is_causal=True), 10)))
+        library_ms=time_ms(lambda: sdpa(qs, ks, vs, is_causal=True), 10),
+        tflops=flops / k2_ms / 1e9, bound_share=b_ms / k2_ms))
+    del qa, ka, va, qs, ks, vs, got, want, lib
+    # K2 again at hymba-1.5b's attention shape (GQA group 5, dh 64, window
+    # 1024), the next slice's; a check, not a row
+    hb, hh, hkv, hdh, hwin = 4, 25, 5, 64, 1024
+    qh, kh, vh = (torch.randn((hb, T, n, hdh), generator=gen, device=dev
+                              ).to(torch.bfloat16) for n in (hh, hkv, hkv))
+    got = flash_attention(qh, kh, vh, window=hwin)
+    want = ref.attention_ref(qh, kh, vh, window=hwin)
+    hymba_err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    hymba_ms = time_ms(lambda: flash_attention(qh, kh, vh, window=hwin), 10)
+    del qh, kh, vh, got, want
 
     # K3 selective scan at falcon-mamba-7b's prefill shape: bf16 activations
     # and parameters as on the path, inputs drawn as the model's init draws
@@ -407,7 +422,11 @@ def kernel_rows(dev, out: dict, launches: dict):
     shapes = {"dequant": f"q {[n, f]} int8 -> bf16",
               "flash_attention": f"B,T,H,KV,dh={[B, T, H, KV, DH]} bf16 causal, "
                                  f"tol rtol=atol=2e-2; SDPA vs plain max_abs_err "
-                                 f"{lib_err:.3g}",
+                                 f"{lib_err:.3g}; {rows[1]['tflops']:.1f} TFLOP/s, "
+                                 f"{rows[1]['bound_share']:.3f} of the bound; at "
+                                 f"hymba's B,T,H,KV,dh,window="
+                                 f"{[hb, T, hh, hkv, hdh, hwin]} max_abs_err "
+                                 f"{hymba_err:.3g} (tol 2e-2), {hymba_ms:.4f} ms",
               "ssm_scan": f"B,T,D,S={[b3, t3, d3, s3]} bf16 in, f32 out, tol "
                           f"rtol=atol=1e-4; f32 inputs max_abs_err "
                           f"{errs['f32']:.3g}"}

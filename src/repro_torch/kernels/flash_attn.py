@@ -8,9 +8,11 @@ and ``kernels.ops.attention`` picks between them by the tensors' device.
 
 Contract (the TPU kernel's, minus its tiling constraint): q (B, T, H, dh),
 k (B, T, KV, dh), v (B, T, KV, dv) -> (B, T, H, dv) in q's dtype; H % KV == 0;
-``Tq == Tk``; f32 with dh, dv <= 128, or bf16 (tensor cores) with
-dh == dv in {16, 32, 64, 128} and 16-byte aligned q, k, v. Any T works: the
-kernel masks the ragged last tile itself.
+``Tq == Tk``; f32 with dh, dv <= 128, or bf16 with dh == dv in
+{16, 32, 64, 128}. Any T works: the kernel masks the ragged last tile itself.
+bf16 runs on Hopper's wgmma with q, k, v staged by TMA, whose tensor maps
+need 16-byte aligned base addresses and strides that are multiples of 16
+bytes; the wrapper checks both.
 """
 from __future__ import annotations
 
@@ -25,12 +27,13 @@ from repro_torch.kernels import _build
 MAX_HEAD_DIM = 128
 BF16_HEAD_DIMS = (16, 32, 64, 128)
 _IS_BF16 = {torch.bfloat16: 1, torch.float32: 0}
+_ERR_ENCODE, _ERR_NO_ENCODE = 10000, 20000     # the C entry point's own codes
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn_fwd")
     fn = lib.flash_attn_fwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -66,16 +69,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 1, got {window}")
     if not all(x.is_contiguous() for x in (q, k, v)):
         raise ValueError("q, k, v must be contiguous")
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("bf16 q, k, v must be 16-byte aligned")
+    if q.dtype == torch.bfloat16 and any(
+            x.data_ptr() % 16 or any(st * 2 % 16 for st in x.stride()[:-1])
+            for x in (q, k, v)):
+        raise ValueError("bf16 q, k, v need 16-byte aligned base addresses and "
+                         "strides that are multiples of 16 bytes (TMA tensor maps)")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty((b, t, h, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out                       # nothing to launch
+    counter = torch.zeros((1,), dtype=torch.int32, device=q.device)  # work items
     err = _lib().flash_attn_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), counter.data_ptr(),
         b, t, h, kv, dh, dv, scale, int(causal), window or 0,
         _IS_BF16[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= _ERR_ENCODE:
+        raise RuntimeError(
+            "flash_attention: the driver has no cuTensorMapEncodeTiled"
+            if err >= _ERR_NO_ENCODE else
+            f"flash_attention: cuTensorMapEncodeTiled refused a map (CUresult "
+            f"{err - _ERR_ENCODE})")
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -6,9 +6,9 @@ so it runs on a machine that has only PyTorch:
 
 Tolerances: dequant is bit-exact (one f32 multiply and one round to nearest
 even on both sides); f32 flash attention within 1e-5 (f32 FMAs against
-cuBLAS f32 products, summed in another order); bf16 flash attention (tensor
-cores) within 2e-2 (P rounded to bf16 before P.V on both sides, but the
-kernel rounds the running-max-relative P and the plain version the
+cuBLAS f32 products, summed in another order); bf16 flash attention (wgmma
+tensor cores) within 2e-2 (P rounded to bf16 before P.V on both sides, but
+the kernel rounds the running-max-relative P and the plain version the
 normalised one). The selective scan within rtol = atol = 1e-4 in both
 dtypes: bf16 inputs are widened to f32 exactly on both sides before any
 arithmetic, so only f32 rounding differs (exp2 with log2(e) folded into A
@@ -71,12 +71,19 @@ ATTN_SHAPES = [
 ]
 # bf16 runs on the tensor cores, which take dh == dv in {16, 32, 64, 128}
 F32_ONLY_SHAPES = [(2, 128, 8, 2, 48, 24, None)]      # dv != dh
+BF16_RING_SHAPES = [                    # across the wgmma kernel's 128-key ring
+    (1, 1000, 8, 2, 128, 128, None),    # 8 tiles, ragged tail
+    (1, 2053, 4, 2, 128, 128, None),    # 17 tiles, a 5-row last tile
+    (1, 1500, 25, 5, 64, 64, 1024),     # hymba-1.5b: GQA group 5, window 1024
+    (2, 700, 4, 2, 128, 128, 100),      # window not a multiple of the tile
+]
 
 
 @pytest.mark.parametrize("dtype,b,t,h,kv,dh,dv,win",
                          [(dt, *s) for dt in (torch.float32, torch.bfloat16)
                           for s in ATTN_SHAPES]
-                         + [(torch.float32, *s) for s in F32_ONLY_SHAPES])
+                         + [(torch.float32, *s) for s in F32_ONLY_SHAPES]
+                         + [(torch.bfloat16, *s) for s in BF16_RING_SHAPES])
 def test_flash_attention_kernel_vs_plain(cuda, b, t, h, kv, dh, dv, win, dtype):
     gen = torch.Generator(cuda).manual_seed(0)
 
@@ -93,10 +100,12 @@ def test_flash_attention_kernel_vs_plain(cuda, b, t, h, kv, dh, dv, win, dtype):
                                **(F32 if dtype == torch.float32 else BF16))
 
 
-@pytest.mark.parametrize("dtype,dh", [(torch.float32, 32), (torch.bfloat16, 64)])
-def test_flash_attention_kernel_non_causal(cuda, dtype, dh):
+@pytest.mark.parametrize("dtype,dh,t", [(torch.float32, 32, 100),
+                                        (torch.bfloat16, 64, 100),
+                                        (torch.bfloat16, 128, 1000)])
+def test_flash_attention_kernel_non_causal(cuda, dtype, dh, t):
     gen = torch.Generator(cuda).manual_seed(1)
-    q, k, v = (torch.randn((1, 100, 4, dh), generator=gen, device=cuda).to(dtype)
+    q, k, v = (torch.randn((1, t, 4, dh), generator=gen, device=cuda).to(dtype)
                for _ in range(3))
     got = ops.attention(q, k, v, causal=False)
     want = ref.attention_ref(q, k, v, causal=False)
@@ -120,6 +129,16 @@ def test_flash_attention_kernel_refuses_bad_input(cuda):
         flat = torch.zeros(8 * 4 * 16 + 1, device=cuda, dtype=torch.bfloat16)
         x = flat[1:].view(1, 8, 4, 16)          # contiguous, 2 bytes off
         ops.attention(x, x, x)
+    # TMA: k alone 8 bytes off its 16-byte alignment, at the path's dh
+    q = torch.zeros((1, 8, 4, 128), device=cuda, dtype=torch.bfloat16)
+    flat = torch.zeros(8 * 2 * 128 + 8, device=cuda, dtype=torch.bfloat16)
+    before = flash_kernel.launches
+    with pytest.raises(ValueError, match="16-byte aligned base addresses"):
+        k = flat[4:-4].view(1, 8, 2, 128)
+        ops.attention(q, k, k)
+    assert flash_kernel.launches == before
+    k = flat[8:].view(1, 8, 2, 128)             # 16 bytes off: aligned
+    assert ops.attention(q, k, k).shape == q.shape
 
 
 SSM = dict(rtol=1e-4, atol=1e-4)
