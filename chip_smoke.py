@@ -30,7 +30,13 @@ Phases, each of which raises on a failed check:
      its time beside the plain version's, a library call's where one exists
      and the card's bound for the same work (for K2 also its TFLOP/s and
      share of the bound); K2 also against its plain version at
-     hymba-1.5b's attention shape (dh 64, GQA group 5, window 1024).
+     hymba-1.5b's attention shape (dh 64, GQA group 5, window 1024); K3 on
+     init-like and trained-like inputs in bf16 and f32, its share of the
+     bound, the special-function-unit floor at the SM clock read under load,
+     its time at hymba-1.5b's shape and with one channel fewer than the
+     path's (D not a multiple of 8: element-wise staging), and what
+     cuobjdump shows of its time loop (registers, spills, instructions and
+     MUFU.EX2 per update).
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` name/power
 line and ``{"ok": true, "device": ...}``. Without a card, or without the rest
 of the repository, it exits non-zero and prints no result.
@@ -38,9 +44,11 @@ of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -321,6 +329,102 @@ def profile_serving(tag: str, model, prompt, kernel: str) -> dict:
     return res
 
 
+K3_SHAPE = (4, 2048, 8192, 16)          # falcon-mamba-7b prefill: B, T, D, S
+K3_HYMBA = (4, 2048, 3200, 16)          # hymba-1.5b's mamba mixer
+K3_ODD = (4, 2048, 8191, 16)            # the path's, D not a multiple of 8
+
+
+def k3_inputs(dev, gen, shape, trained: bool):
+    """Selective-scan inputs in f32 drawn as the model's init draws them (dt
+    in [1e-3, 0.1], A = -(1..S), D = 1), or trained-like: a_log = log(1..S) +
+    0.1 * noise per (d, s), and a random D."""
+    b, t, d, s = shape
+    u = torch.randn((b, t, d), generator=gen, device=dev)
+    dt = torch.exp(torch.rand((b, t, d), generator=gen, device=dev) * 4.6 - 6.9)
+    b_in, c_in = (torch.randn((b, t, s), generator=gen, device=dev)
+                  for _ in range(2))
+    a_log = torch.log(torch.arange(1, s + 1, device=dev, dtype=torch.float32)
+                      ).expand(d, s).contiguous()
+    d_skip = torch.ones((d,), device=dev)
+    if trained:
+        a_log = a_log + 0.1 * torch.randn((d, s), generator=gen, device=dev)
+        d_skip = torch.randn((d,), generator=gen, device=dev)
+    return [u, dt, b_in, c_in, a_log, d_skip]
+
+
+def sm_clock_under(fn, seconds: float = 1.5) -> float:
+    """Median SM clock (MHz, nvidia-smi) while ``fn`` runs back to back."""
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=60)
+            try:
+                samples.append(float(out.stdout.split()[0]))
+            except (IndexError, ValueError):
+                pass
+            time.sleep(0.1)
+
+    th = threading.Thread(target=sample)
+    th.start()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    stop.set()
+    th.join()
+    check(bool(samples), "nvidia-smi read the SM clock")
+    return statistics.median(samples)
+
+
+def k3_sass() -> dict:
+    """What cuobjdump shows of K3's bf16 instance with 16-byte staging (D a
+    multiple of 8, as on the path): registers and local memory (spills) per
+    thread; in its time loop (the longest backward branch) the instructions
+    and MUFU.EX2 per state update, counting 16 updates per y store (STG); and
+    whether the chunk-ahead loads all come before the loop's first y store.
+    Empty where the library holds no such function: a reading, not a check."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    lib = str(_build.library_path("ssm_scan"))
+
+    def dump(flag: str) -> str:
+        return subprocess.run([cuobjdump, flag, lib], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+
+    def ours(fn: str) -> bool:       # ssm_scan_kernel<__nv_bfloat16, true>
+        return "ssm_scan_kernel" in fn and "bfloat16" in fn and "Lb1E" in fn
+
+    out = {}
+    for m in re.finditer(r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+)"
+                         r" LOCAL:(\d+)", dump("-res-usage")):
+        if ours(m[1]):
+            out.update(registers=int(m[2]), local_bytes=int(m[5]))
+    body = next((f for f in dump("-sass").split("Function : ")[1:]
+                 if ours(f.split()[0])), "")
+    ins = [(int(a, 16), op) for a, op in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loops = [(int(m[1], 16), a) for a, op in ins
+             if (m := re.search(r"BRA (0x[0-9a-f]+)", op)) and int(m[1], 16) < a]
+    if not loops:
+        return out
+    lo, hi = max(loops, key=lambda p: p[1] - p[0])
+    loop = [op for a, op in ins if lo <= a <= hi]
+    stg = [i for i, op in enumerate(loop) if "STG" in op]
+    if not stg:
+        return out
+    updates = 16 * len(stg)
+    return dict(**out, loop_instructions=len(loop),
+                instructions_per_update=len(loop) / updates,
+                mufu_ex2_per_update=sum("MUFU.EX2" in op for op in loop) / updates,
+                loads_before_first_store=all(i < stg[0] for i, op in
+                                             enumerate(loop) if "LDG" in op))
+
+
 def kernel_rows(dev, out: dict, launches: dict):
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant import dequant
@@ -386,39 +490,58 @@ def kernel_rows(dev, out: dict, launches: dict):
     hymba_ms = time_ms(lambda: flash_attention(qh, kh, vh, window=hwin), 10)
     del qh, kh, vh, got, want
 
-    # K3 selective scan at falcon-mamba-7b's prefill shape: bf16 activations
-    # and parameters as on the path, inputs drawn as the model's init draws
-    # them (dt in [1e-3, 0.1], A = -(1..S)); then the same inputs in f32
-    b3, t3, d3, s3 = 4, 2048, 8192, 16
+    # K3 selective scan at falcon-mamba-7b's prefill shape, bf16 as on the
+    # path, held to the plain version on init-like inputs (A = -(1..S)) and
+    # trained-like ones (a_log = log(1..S) + noise per (d, s)), each in bf16
+    # and f32; then timed there and at hymba-1.5b's shape (the next slice's)
+    b3, t3, d3, s3 = K3_SHAPE
     gen = torch.Generator(dev).manual_seed(SEED + 11)
-    u = torch.randn((b3, t3, d3), generator=gen, device=dev)
-    dt = torch.exp(torch.rand((b3, t3, d3), generator=gen, device=dev) * 4.6 - 6.9)
-    b_in, c_in = (torch.randn((b3, t3, s3), generator=gen, device=dev)
-                  for _ in range(2))
-    a_log = torch.log(torch.arange(1, s3 + 1, device=dev, dtype=torch.float32)
-                      ).expand(d3, s3).contiguous()
-    d_skip = torch.ones((d3,), device=dev)
-    args32 = [u, dt, b_in, c_in, a_log, d_skip]
-    args16 = [x.to(torch.bfloat16) for x in args32]
     errs = {}
-    for name, args in (("f32", args32), ("bf16", args16)):
-        got, want = ssm_scan(*args), ref.ssm_scan_ref(*args)
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
-        errs[name] = max((g - w).abs().max().item() for g, w in zip(got, want))
-    del args32
+    for kind in ("init-like", "trained-like"):
+        args32 = k3_inputs(dev, gen, K3_SHAPE, trained=kind == "trained-like")
+        for name, args in (("f32", args32),
+                           ("bf16", [x.to(torch.bfloat16) for x in args32])):
+            got, want = ssm_scan(*args), ref.ssm_scan_ref(*args)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+            errs[f"{kind} {name}"] = max((g - w).abs().max().item()
+                                         for g, w in zip(got, want))
+            del got, want
+        del args32
+    args16 = [x.to(torch.bfloat16) for x in k3_inputs(dev, gen, K3_SHAPE, False)]
     nbytes = (sum(x.numel() * x.element_size() for x in args16)
               + 4 * (b3 * t3 * d3 + b3 * d3 * s3))
     # per (b, t, d, s): dt*A', exp, FMA into h, (dt*u)*B, FMA into y;
     # per (b, t, d): dt*u, D*u and its add
     ops_count = 7 * b3 * t3 * d3 * s3 + 3 * b3 * t3 * d3
     b_ms, b_by = bound(nbytes, ops_count, PEAK_F32_FLOPS)
+    k3_ms = time_ms(lambda: ssm_scan(*args16), 10)
+    mhz = sm_clock_under(lambda: ssm_scan(*args16))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # every exp on the special-function unit: 16 a clock per SM
+    mufu_ms = b3 * t3 * d3 * s3 / (16 * sms * mhz * 1e6) * 1e3
+    hy = [x.to(torch.bfloat16) for x in k3_inputs(dev, gen, K3_HYMBA, False)]
+    hy_err = max((g - w).abs().max().item()
+                 for g, w in zip(ssm_scan(*hy), ref.ssm_scan_ref(*hy)))
+    check(hy_err <= 1e-4, f"ssm_scan at hymba's shape max err {hy_err} <= 1e-4")
+    hy_ms = time_ms(lambda: ssm_scan(*hy), 10)
+    del hy
+    od = [x.to(torch.bfloat16) for x in k3_inputs(dev, gen, K3_ODD, False)]
+    od_err = max((g - w).abs().max().item()
+                 for g, w in zip(ssm_scan(*od), ref.ssm_scan_ref(*od)))
+    check(od_err <= 1e-4, f"ssm_scan at D = {K3_ODD[2]} max err {od_err} <= 1e-4")
+    od_ms = time_ms(lambda: ssm_scan(*od), 10)
+    k3_ms2 = time_ms(lambda: ssm_scan(*args16), 10)
+    del od
     rows.append(dict(
         name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:64", launches=launches["ssm_scan"],
-        max_abs_err=errs["bf16"], ms=time_ms(lambda: ssm_scan(*args16), 10),
+        max_abs_err=max(errs.values()), ms=k3_ms,
         plain_ms=time_ms(lambda: ref.ssm_scan_ref(*args16), 1, windows=3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, bound_share=b_ms / k3_ms,
+        mufu_floor_ms=mufu_ms, sm_clock_mhz=mhz, hymba_ms=hy_ms,
+        odd_d_ms=od_ms, ms_after_odd_d=k3_ms2, sass=k3_sass()))
+    del args16
     shapes = {"dequant": f"q {[n, f]} int8 -> bf16",
               "flash_attention": f"B,T,H,KV,dh={[B, T, H, KV, DH]} bf16 causal, "
                                  f"tol rtol=atol=2e-2; SDPA vs plain max_abs_err "
@@ -427,9 +550,16 @@ def kernel_rows(dev, out: dict, launches: dict):
                                  f"hymba's B,T,H,KV,dh,window="
                                  f"{[hb, T, hh, hkv, hdh, hwin]} max_abs_err "
                                  f"{hymba_err:.3g} (tol 2e-2), {hymba_ms:.4f} ms",
-              "ssm_scan": f"B,T,D,S={[b3, t3, d3, s3]} bf16 in, f32 out, tol "
-                          f"rtol=atol=1e-4; f32 inputs max_abs_err "
-                          f"{errs['f32']:.3g}"}
+              "ssm_scan": f"B,T,D,S={list(K3_SHAPE)} bf16 in, f32 out, tol "
+                          f"rtol=atol=1e-4; max_abs_err "
+                          f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; "
+                          f"{rows[2]['bound_share']:.3f} of the bound; MUFU floor "
+                          f"{mufu_ms:.4f} ms at {mhz:.0f} MHz under load; at "
+                          f"hymba's B,T,D,S={list(K3_HYMBA)} {hy_ms:.4f} ms "
+                          f"(max_abs_err {hy_err:.3g}); at D={K3_ODD[2]} "
+                          f"(element-wise staging) {od_ms:.4f} ms (max_abs_err "
+                          f"{od_err:.3g}), then at D={d3} again {k3_ms2:.4f} ms; "
+                          f"SASS {rows[2]['sass']}"}
     for r in rows:
         log(f"[4] {r['name']} {shapes[r['name']]}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "

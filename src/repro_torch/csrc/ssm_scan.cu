@@ -2,138 +2,289 @@
 //   h = exp(dt * A) * h + (dt * u) * B,   y = h . C + D * u,   A = -exp(a_log).
 //
 // Replaces the TPU kernel src/repro/kernels/ssm_scan.py::ssm_scan
-// (_ssm_kernel). Layouts are the reference's: u, dt (B,T,D); B, C (B,T,S);
-// a_log (D,S); d_skip (D,); outputs y (B,T,D) f32 and h_final (B,D,S) f32,
-// all contiguous.
+// (_ssm_kernel, pallas_call at :77). Layouts are the reference's: u, dt
+// (B,T,D); B, C (B,T,S); a_log (D,S); d_skip (D,); outputs y (B,T,D) f32 and
+// h_final (B,D,S) f32, all contiguous.
 //
-// Bound on an H100 (falcon-mamba-7b prefill: B=4, T=2048, D=8192, S=16):
-// device-memory bytes at the card's peak rates. u and dt are read once
-// (268 MB in bf16), y is written once (268 MB in f32): 0.16 ms at 3.35 TB/s.
-// The arithmetic is ~7 f32 operations per (b, t, d, s), 0.11 ms at 67
-// TFLOP/s. But one of them is an exp, and B*T*D*S = 1.07e9 exps go through
-// the special-function units at 16 per clock per SM (~0.26 ms at 1.98 GHz):
-// that is the limit of this design, which evaluates every exp with ex2.
-//
-// Design:
-//   * The Pallas kernel walks time as the last, sequential grid axis and
-//     carries the (bd, S) state in VMEM scratch between grid steps. CUDA
-//     blocks run in no order, so each block owns 64 channels of one batch
-//     row for the whole sequence and loops over time inside itself, with
-//     the state in registers.
-//   * Four lanes share a channel, each holding four of its (up to 16)
-//     states, so the path's 32 768 (b, d) channels give 131 072 threads;
-//     the partial y of the four lanes is summed with two xor shuffles.
-//     States past S are zero (A = B = C = 0), so any S <= 16 runs.
-//   * Time goes in chunks of 32 steps. The block stages the chunk's u and dt
-//     for its channels (coalesced along d) and its rows of B and C (shared
-//     by all 64 channels) in shared memory, widened to f32; y is gathered
-//     in shared memory and written back coalesced along d.
-//   * exp(dt * A) is exp2f(dt * A'), with A' = -exp(a_log) * log2(e) computed
-//     once per thread.
-//   * Ragged T and D are masked in the kernel (no tile constraint): loads
-//     past the ends read zeros, stores past them are skipped.
+// Bounds on an H100 SXM (falcon-mamba-7b prefill: B=4, T=2048, D=8192, S=16,
+// E = B*T*D*S = 1.07e9 state updates):
+//   * bytes: u and dt read once (268 MB in bf16), y written once (268 MB in
+//     f32), the rest 3 MB: 0.161 ms at 3.35 TB/s;
+//   * special-function unit: one exp per update; ex2 runs at 16 a clock per
+//     SM, 0.257 ms at 132 SMs and 1.98 GHz if every exp goes there;
+//   * issue: 128 thread-instructions a clock per SM; an update needs at least
+//     4 FP32 instructions (dt*A', (dt*u)*B, the FMA into h, the FMA into y),
+//     0.128 ms before the exp, the loads and the stores.
+// What the design does about each:
+//   * Issue: one thread owns one (batch row, channel) and all its (up to 16)
+//     states, so y needs no reduction across threads (no shuffle, no shared
+//     store, no barrier per step), and its 16 states are 16 independent
+//     chains. The input dtype is a template parameter and the time loop is
+//     unrolled over chunks of TC steps, so loads need no dtype branch and
+//     every register index and shared-memory offset is fixed at compile time;
+//     the per-step overhead left is the broadcast reads of B and C, the read
+//     of (u, dt) and one predicated store of y.
+//   * Special-function unit: every exp is one MUFU.EX2 (ex2.approx.ftz), and
+//     exp(dt * A) of a step is taken one step before the step uses it, so
+//     the exps queue behind the previous step's FMAs instead of in front of
+//     their own. Issue, not the MUFU, is the tighter limit of this design:
+//     moving a share of the exps onto the FMA pipes as a polynomial did not
+//     make it measurably faster.
+//   * Bytes: each warp stages its own 32 channels one chunk ahead: 16-byte
+//     loads of u and dt, issued at the start of a chunk and written to shared
+//     memory (widened to f32) at its end, so a whole chunk of arithmetic runs
+//     under each load; B and C of a step, which every channel of the batch
+//     row shares, are staged with them and read as broadcasts. Warps sync
+//     only with themselves. A warp's y store writes 128 neighbouring bytes.
+// States past S have A = B = C = 0, so they stay 0 and add nothing: any
+// S <= 16 runs. Channels past D, and steps past T (staged as dt = u = 0, so
+// h is kept exactly), are computed but not stored.
 // Numerics: every input is widened to f32 before any arithmetic, as in the
-// plain version (kernels/ref.py::ssm_scan_ref); sums are taken in another
-// order. One body serves both input dtypes: each load reads a bf16 or an f32
-// element by a flag that is uniform over the launch.
+// plain version (kernels/ref.py::ssm_scan_ref); exp(dt*A) is 2^(dt*A'), with
+// A' = -exp(a_log) * log2(e) computed once per state; sums are taken in
+// another order. ex2.approx.ftz is within ~2e-7 relative of 2^x and gives 0
+// where 2^x is below the smallest normal f32 (x < -126), as exp underflows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int LANES = 4;                 // threads per channel
-constexpr int SPL = 4;                   // states per lane
-constexpr int MAXS = LANES * SPL;        // largest S supported
-constexpr int CH = 64;                   // channels per block
-constexpr int THREADS = CH * LANES;      // 256
-constexpr int TC = 32;                   // time steps per staged chunk
+constexpr int MAXS = 16;                 // states per channel = largest S
+constexpr int THREADS = 128;             // one channel per thread
+constexpr int WARPS = THREADS / 32;
+constexpr int TC = 16;                   // time steps per chunk
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float ld(const void* p, int64_t i, bool bf16) {
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ float param(const void* p, int64_t i, bool bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
               : static_cast<const float*>(p)[i];
 }
 
-__global__ void __launch_bounds__(THREADS)
-ssm_scan_kernel(const void* __restrict__ u, const void* __restrict__ dt,
-                const void* __restrict__ b_in, const void* __restrict__ c_in,
+// 2^x on the special-function unit: one MUFU.EX2; 0 below -126 (flushed).
+__device__ __forceinline__ float ex2_mufu(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// *p = v where ok, as one predicated store: a branch around a plain store
+// would end the basic block at every step and keep the compiler from
+// overlapping one step's arithmetic with the next one's.
+__device__ __forceinline__ void store_if(float* p, float v, bool ok) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n @p st.global.f32 [%0], %1;\n}"
+      :: "l"(p), "f"(v), "r"((int)ok));
+}
+
+// Loads of the chunk ahead, as volatile asm and without .nc, so that neither
+// the compiler nor ptxas moves them past the per-step stores of y (which may
+// alias them) and they are issued at the start of the chunk: plain or .nc
+// loads get sunk to the end of the chunk, next to the shared-memory stores
+// that consume them, where every chunk waits out a device-memory latency.
+// Each returns 0 where !ok.
+__device__ __forceinline__ uint4 ld16_if(const void* p, bool ok) {
+  uint4 v;
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %5, 0;\n"
+      " mov.b32 %0, 0;\n mov.b32 %1, 0;\n mov.b32 %2, 0;\n mov.b32 %3, 0;\n"
+      " @p ld.global.v4.u32 {%0, %1, %2, %3}, [%4];\n}"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p), "r"((int)ok));
+  return v;
+}
+__device__ __forceinline__ float ld_if(const float* p, bool ok) {
+  float v;
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n mov.b32 %0, 0;\n"
+      " @p ld.global.f32 %0, [%1];\n}" : "=f"(v) : "l"(p), "r"((int)ok));
+  return v;
+}
+__device__ __forceinline__ __nv_bfloat16 ld_if(const __nv_bfloat16* p, bool ok) {
+  unsigned short v;
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n mov.b16 %0, 0;\n"
+      " @p ld.global.b16 %0, [%1];\n}" : "=h"(v) : "l"(p), "r"((int)ok));
+  return __ushort_as_bfloat16(v);
+}
+
+// The EPV inputs of one 16-byte load, widened to f32.
+template <typename In>
+struct Vec {
+  static constexpr int EPV = 16 / sizeof(In);
+  __device__ __forceinline__ static void widen(const uint4& v, float* out) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    if constexpr (sizeof(In) == 2) {     // bf16: the low half comes first
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        out[2 * i] = __uint_as_float(w[i] << 16);
+        out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) out[i] = __uint_as_float(w[i]);
+    }
+  }
+};
+
+// VEC: D is a multiple of 8, so every row of u and dt is 16-byte aligned and
+// is staged with 16-byte loads; otherwise element by element. The path needs
+// two blocks an SM; asking for three caps registers at 170, under which ptxas
+// schedules the time loop with fewer stall cycles than with no cap.
+template <typename In, bool VEC>
+__global__ void __launch_bounds__(THREADS, 3)
+ssm_scan_kernel(const In* __restrict__ u, const In* __restrict__ dt,
+                const In* __restrict__ b_in, const In* __restrict__ c_in,
                 const void* __restrict__ a_log, const void* __restrict__ d_skip,
                 float* __restrict__ y, float* __restrict__ h_out, int T, int D,
-                int S, bool in_bf16, bool param_bf16) {
-  __shared__ float u_s[TC][CH];
-  __shared__ float dt_s[TC][CH];
-  __shared__ float y_s[TC][CH];
-  __shared__ __align__(16) float b_s[TC][MAXS];
-  __shared__ __align__(16) float c_s[TC][MAXS];
+                int S, bool param_bf16) {
+  // per warp and step of a chunk: (u, dt) of each channel, and B then C
+  // (zero past S), widened to f32; two chunks, one read while the other is
+  // filled
+  __shared__ __align__(16) float2 ud_s[WARPS][2][TC][32];
+  __shared__ __align__(16) float bc_s[WARPS][2][TC][2 * MAXS];
+  constexpr int EPV = Vec<In>::EPV;
+  constexpr int VPR = 32 / EPV;                  // 16-byte vectors per row
+  constexpr int NV = TC * VPR / 32;              // staged per lane, each
+  static_assert(NV * 32 == TC * VPR, "a chunk's rows split evenly over lanes");
 
-  const int tid = threadIdx.x;
-  const int c = tid / LANES;             // channel within the block
-  const int lane = tid % LANES;
-  const int d0 = blockIdx.x * CH;
-  const int d = d0 + c;
-  const int64_t b = blockIdx.y;
-  const int s0 = lane * SPL;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int dw = blockIdx.x * THREADS + w * 32;  // the warp's first channel
+  const int d = dw + lane;
+  const bool d_ok = d < D;
+  const int64_t bT = (int64_t)blockIdx.y * T;
 
-  float a2[SPL], h[SPL];
+  float a2[MAXS], h[MAXS];
 #pragma unroll
-  for (int k = 0; k < SPL; ++k) {
-    const int s = s0 + k;
-    a2[k] = (d < D && s < S) ? -expf(ld(a_log, (int64_t)d * S + s, param_bf16)) * LOG2E
-                             : 0.f;
-    h[k] = 0.f;
+  for (int s = 0; s < MAXS; ++s) {
+    a2[s] = (d_ok && s < S)
+                ? -expf(param(a_log, (int64_t)d * S + s, param_bf16)) * LOG2E
+                : 0.f;
+    h[s] = 0.f;
   }
-  const float dsk = d < D ? ld(d_skip, d, param_bf16) : 0.f;
+  const float dsk = d_ok ? param(d_skip, d, param_bf16) : 0.f;
 
-  for (int t0 = 0; t0 < T; t0 += TC) {
-    const int nt = min(TC, T - t0);
-    for (int i = tid; i < TC * CH; i += THREADS) {
-      const int tt = i / CH, cc = i % CH;
-      const bool ok = tt < nt && d0 + cc < D;
-      const int64_t e = (b * T + t0 + tt) * D + d0 + cc;
-      u_s[tt][cc] = ok ? ld(u, e, in_bf16) : 0.f;
-      dt_s[tt][cc] = ok ? ld(dt, e, in_bf16) : 0.f;
-    }
-    for (int i = tid; i < TC * MAXS; i += THREADS) {
-      const int tt = i / MAXS, s = i % MAXS;
-      const bool ok = tt < nt && s < S;
-      const int64_t e = (b * T + t0 + tt) * S + s;
-      b_s[tt][s] = ok ? ld(b_in, e, in_bf16) : 0.f;
-      c_s[tt][s] = ok ? ld(c_in, e, in_bf16) : 0.f;
-    }
-    __syncthreads();
-
-    for (int tt = 0; tt < nt; ++tt) {
-      const float dtv = dt_s[tt][c], uv = u_s[tt][c];
-      const float dtu = dtv * uv;
-      const float4 bv = *reinterpret_cast<const float4*>(&b_s[tt][s0]);
-      const float4 cv = *reinterpret_cast<const float4*>(&c_s[tt][s0]);
-      const float bk[SPL] = {bv.x, bv.y, bv.z, bv.w};
-      const float ck[SPL] = {cv.x, cv.y, cv.z, cv.w};
-      float acc = 0.f;
+  // staging registers, loaded at the start of a chunk for the next one and
+  // written to shared memory at its end. VEC: vector k is row v / VPR,
+  // channels dw + (v % VPR) * EPV.., v = lane + 32 k; else row k of the
+  // lane's channel. B/C: step k, B (lane < 16) or C, state lane % 16.
+  uint4 uv_r[NV], dv_r[NV];
+  In u_r[TC], dt_r[TC], bc_r[TC];
+  const In* bc_src = lane < MAXS ? b_in : c_in;
+  const int bc_st = lane % MAXS;
+  auto fetch = [&](int t0) {
+    if constexpr (VEC) {
 #pragma unroll
-      for (int k = 0; k < SPL; ++k) {
-        h[k] = exp2f(dtv * a2[k]) * h[k] + dtu * bk[k];
-        acc += h[k] * ck[k];
+      for (int k = 0; k < NV; ++k) {
+        const int v = lane + 32 * k, row = v / VPR, col = v % VPR * EPV;
+        const bool ok = t0 + row < T && dw + col < D;
+        const int64_t e = (bT + t0 + row) * D + dw + col;
+        uv_r[k] = ld16_if(u + e, ok);
+        dv_r[k] = ld16_if(dt + e, ok);
       }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      if (lane == 0) y_s[tt][c] = acc + dsk * uv;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < TC * CH; i += THREADS) {
-      const int tt = i / CH, cc = i % CH;
-      if (tt < nt && d0 + cc < D)
-        y[(b * T + t0 + tt) * D + d0 + cc] = y_s[tt][cc];
-    }
-  }
-
-  if (d < D) {
+    } else {
 #pragma unroll
-    for (int k = 0; k < SPL; ++k)
-      if (s0 + k < S) h_out[(b * D + d) * S + s0 + k] = h[k];
+      for (int k = 0; k < TC; ++k) {
+        const bool ok = d_ok && t0 + k < T;
+        const int64_t e = (bT + t0 + k) * D + d;
+        u_r[k] = ld_if(u + e, ok);
+        dt_r[k] = ld_if(dt + e, ok);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < TC; ++k)
+      bc_r[k] = ld_if(bc_src + (bT + t0 + k) * S + bc_st, bc_st < S && t0 + k < T);
+  };
+  auto stage = [&](int buf) {
+    if constexpr (VEC) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int v = lane + 32 * k, row = v / VPR, col = v % VPR * EPV;
+        float fu[EPV], fd[EPV];
+        Vec<In>::widen(uv_r[k], fu);
+        Vec<In>::widen(dv_r[k], fd);
+        float4* dst = reinterpret_cast<float4*>(&ud_s[w][buf][row][col]);
+#pragma unroll
+        for (int i = 0; i < EPV / 2; ++i)
+          dst[i] = make_float4(fu[2 * i], fd[2 * i], fu[2 * i + 1], fd[2 * i + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < TC; ++k)
+        ud_s[w][buf][k][lane] = make_float2(widen(u_r[k]), widen(dt_r[k]));
+    }
+#pragma unroll
+    for (int k = 0; k < TC; ++k) bc_s[w][buf][k][lane] = widen(bc_r[k]);
+  };
+
+  fetch(0);
+  stage(0);
+  __syncwarp();
+  float ea[MAXS];                        // exp(dt * A) of the coming step
+  int buf = 0;
+  for (int t0 = 0; t0 < T; t0 += TC, buf ^= 1) {
+    fetch(t0 + TC);                      // arrives while this chunk runs
+    float* yc = y + (bT + t0) * D + d;
+    const int n = T - t0;                // steps left from t0
+    const float dt0 = ud_s[w][buf][0][lane].y;
+#pragma unroll
+    for (int s = 0; s < MAXS; ++s) {
+      const float x = dt0 * a2[s];
+      ea[s] = ex2_mufu(x);
+    }
+#pragma unroll
+    for (int tt = 0; tt < TC; ++tt) {
+      const float4* bc4 = reinterpret_cast<const float4*>(bc_s[w][buf][tt]);
+      float bc[2 * MAXS];
+#pragma unroll
+      for (int q = 0; q < 2 * MAXS / 4; ++q) {
+        const float4 v = bc4[q];
+        bc[4 * q] = v.x; bc[4 * q + 1] = v.y;
+        bc[4 * q + 2] = v.z; bc[4 * q + 3] = v.w;
+      }
+      const float2 ud = ud_s[w][buf][tt][lane];
+      const float dtu = ud.y * ud.x;
+      const float dtn = tt + 1 < TC ? ud_s[w][buf][tt + 1][lane].y : 0.f;
+      float yv = dsk * ud.x;
+#pragma unroll
+      for (int s = 0; s < MAXS; ++s) {
+        h[s] = fmaf(ea[s], h[s], dtu * bc[s]);
+        yv = fmaf(h[s], bc[MAXS + s], yv);
+        if (tt + 1 < TC) {
+          const float x = dtn * a2[s];
+          ea[s] = ex2_mufu(x);
+        }
+      }
+      store_if(yc + tt * D, yv, d_ok && tt < n);
+    }
+    stage(buf ^ 1);                      // read last in the previous chunk
+    __syncwarp();
   }
+
+  if (d_ok) {
+#pragma unroll
+    for (int s = 0; s < MAXS; ++s)
+      if (s < S) h_out[((int64_t)blockIdx.y * D + d) * S + s] = h[s];
+  }
+}
+
+template <typename In>
+void launch(const void* u, const void* dt, const void* b_in, const void* c_in,
+            const void* a_log, const void* d_skip, float* y, float* h_out,
+            int B, int T, int D, int S, bool param_bf16, cudaStream_t st) {
+  const dim3 grid((D + THREADS - 1) / THREADS, B);
+  const In *ui = static_cast<const In*>(u), *dti = static_cast<const In*>(dt),
+           *bi = static_cast<const In*>(b_in), *ci = static_cast<const In*>(c_in);
+  if (D % 8 == 0)
+    ssm_scan_kernel<In, true><<<grid, THREADS, 0, st>>>(
+        ui, dti, bi, ci, a_log, d_skip, y, h_out, T, D, S, param_bf16);
+  else
+    ssm_scan_kernel<In, false><<<grid, THREADS, 0, st>>>(
+        ui, dti, bi, ci, a_log, d_skip, y, h_out, T, D, S, param_bf16);
 }
 
 }  // namespace
@@ -147,9 +298,14 @@ extern "C" int ssm_scan_launch(const void* u, const void* dt, const void* b_in,
                                int T, int D, int S, int in_bf16, int param_bf16,
                                void* stream) {
   if (S < 1 || S > MAXS) return (int)cudaErrorInvalidValue;
-  dim3 grid((D + CH - 1) / CH, B);
-  ssm_scan_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      u, dt, b_in, c_in, a_log, d_skip, static_cast<float*>(y),
-      static_cast<float*>(h_out), T, D, S, in_bf16 != 0, param_bf16 != 0);
+  float* yf = static_cast<float*>(y);
+  float* hf = static_cast<float*>(h_out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_bf16)
+    launch<__nv_bfloat16>(u, dt, b_in, c_in, a_log, d_skip, yf, hf, B, T, D, S,
+                          param_bf16 != 0, st);
+  else
+    launch<float>(u, dt, b_in, c_in, a_log, d_skip, yf, hf, B, T, D, S,
+                  param_bf16 != 0, st);
   return (int)cudaGetLastError();
 }

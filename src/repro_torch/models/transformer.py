@@ -138,6 +138,13 @@ class Model(nn.Module):
                 f"family {cfg.family!r} is not ported to repro_torch yet "
                 "(ROADMAP Queue 1: hybrid M11b, moe M10, audio/vlm M12); "
                 "'dense' and 'ssm' run")
+        if not cfg.attention_free:
+            for flag in ("attn_scale_in_q", "attn_probs_bf16"):
+                if getattr(cfg, flag):
+                    raise NotImplementedError(
+                        f"{flag}=True is not ported to repro_torch yet: its "
+                        "attention would compute other numbers than the "
+                        "reference's (ROADMAP Queue 1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)

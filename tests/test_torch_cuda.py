@@ -11,10 +11,12 @@ tensor cores) within 2e-2 (P rounded to bf16 before P.V on both sides, but
 the kernel rounds the running-max-relative P and the plain version the
 normalised one). The selective scan within rtol = atol = 1e-4 in both
 dtypes: bf16 inputs are widened to f32 exactly on both sides before any
-arithmetic, so only f32 rounding differs (exp2 with log2(e) folded into A
-against exp, sums in another order). The models on the card in f32 match
+arithmetic, so only f32 rounding differs (2^x by ex2.approx, within ~2e-7
+relative, with log2(e) folded into A, against exp; sums in another order). The models on the card in f32 match
 their CPU runs within 1e-4 and greedy tokens match.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -148,14 +150,20 @@ SSM_SHAPES = [
     (1, 100, 200, 8),       # ragged T (not a multiple of 32) and D (of 64)
     (2, 33, 3200, 16),      # hymba's d_inner, which no 512-wide tile divides
     (1, 1, 8, 16),          # one step
-    (3, 70, 96, 5),         # S not a multiple of the 4 states per lane
+    (3, 70, 96, 5),         # S below 16: the states past S stay 0
+    (1, 2053, 200, 16),     # T past a whole number of 16-step chunks
+    (2, 37, 3200, 5),       # hymba's d_inner; T below one chunk
+    (1, 70, 8200, 1),       # D past a whole number of 128-channel blocks
+    (2, 50, 77, 16),        # D not a multiple of 8: element-wise staging
 ]
 
 
-def _ssm_args(dev, b, t, d, s, dtype, param_dtype, seed=0):
+def _ssm_args(dev, b, t, d, s, dtype, param_dtype, seed=0, dt_max=None):
     gen = torch.Generator(dev).manual_seed(seed)
     u = torch.randn((b, t, d), generator=gen, device=dev)
     dt = torch.exp(torch.rand((b, t, d), generator=gen, device=dev) * 4.6 - 6.9)
+    if dt_max is not None:                  # dt uniform in [0, dt_max)
+        dt = torch.rand((b, t, d), generator=gen, device=dev) * dt_max
     b_in, c_in = (torch.randn((b, t, s), generator=gen, device=dev)
                   for _ in range(2))
     a_log = torch.log(torch.arange(1, s + 1, device=dev, dtype=torch.float32)
@@ -178,6 +186,23 @@ def test_ssm_scan_kernel_vs_plain(cuda, b, t, d, s, dtype, param_dtype):
     assert y.dtype == h.dtype == torch.float32
     assert tuple(y.shape) == (b, t, d) and tuple(h.shape) == (b, d, s)
     wy, wh = ref.ssm_scan_ref(*args)
+    torch.testing.assert_close(y, wy, **SSM)
+    torch.testing.assert_close(h, wh, **SSM)
+
+
+@pytest.mark.parametrize("b,t,d,s", [(2, 300, 200, 16), (1, 100, 77, 5)])
+@pytest.mark.parametrize("dtype,param_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_ssm_scan_kernel_exp_underflow(cuda, b, t, d, s, dtype, param_dtype):
+    # dt up to 10 puts dt * A * log2(e) below -126 for most states, where
+    # ex2.approx.ftz must give 0 as exp does; state 0 (A = -200) crosses
+    # -127 for dt above ~0.44, the others at their own dt
+    args = _ssm_args(cuda, b, t, d, s, dtype, param_dtype, dt_max=10.0)
+    args[4][:, 0] = math.log(200.0)
+    y, h = ops.ssm_scan(*args)
+    wy, wh = ref.ssm_scan_ref(*args)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
     torch.testing.assert_close(y, wy, **SSM)
     torch.testing.assert_close(h, wh, **SSM)
 

@@ -117,3 +117,25 @@ def test_generate_tokens_identical(pair):
     got = generate(model, torch.from_numpy(toks[:, :T]), steps=6)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+ATTN_FLAGS = ["attn_scale_in_q", "attn_probs_bf16"]
+
+
+@pytest.mark.parametrize("flag", ATTN_FLAGS)
+def test_dense_model_refuses_unported_attention_flag(flag):
+    cfg = get_smoke("chatglm3-6b").scaled(remat=False, dtype="float32")
+    with pytest.raises(NotImplementedError, match=flag):
+        build_model(cfg.scaled(**{flag: True}), device="cpu")
+
+
+@pytest.mark.parametrize("flag", ATTN_FLAGS)
+def test_ssm_model_ignores_attention_flag(flag):
+    # the reference's ssm model reads neither flag, so neither changes it
+    cfg = get_smoke("falcon-mamba-7b").scaled(remat=False, dtype="float32")
+    plain = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    flagged = build_model(cfg.scaled(**{flag: True}), device="cpu")
+    flagged.load_state_dict(plain.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32))
+    assert torch.equal(flagged.logits_full(toks), plain.logits_full(toks))
