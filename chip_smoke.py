@@ -6,15 +6,19 @@
 Phases, each of which raises on a failed check:
   1. environment: torch version, the card's name and power limit; build the
      three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each, in
-     parallel);
-  2. references at a small size: the chatglm3 and falcon-mamba smoke models
-     in f32 on the card (through the kernels) against the same weights on
-     the CPU (plain path);
+     parallel) and print ptxas' registers and spills per kernel instance
+     (flash attention: one per head dim and setting of the two attention
+     flags);
+  2. references at a small size: the chatglm3, falcon-mamba and hymba smoke
+     models in f32 on the card (through the kernels) against the same
+     weights on the CPU (plain path);
   3. the main paths, each with every kernel launch counter set to 0 just
      before it and read just after:
      a. device tier: a block-quantized ImageNet-size record store
         (40 000 x 151 704 B, ~6.1 GB) and a token store (262 144 x 2 048
-        tokens, 2 GiB), both made on the card from a seed; a fetch of 256
+        tokens, 2 GiB, ids below the smallest vocab of the three served
+        models, so one prompt serves all three), both made on the card from
+        a seed; a fetch of 256
         records decoded by the dequant kernel to bf16 and f32; a fetch of 4
         token records that becomes the prompt; the overflow flag at
         capacity_factor 0.5;
@@ -26,11 +30,19 @@ Phases, each of which raises on a failed check:
         falcon-mamba-7b the same way, at full width and depth (64 layers,
         d_model 4096, d_inner 8192), one selective-scan launch per layer of
         the prefill; then (f) its logits checked and (g) its profile;
+     h. with falcon-mamba-7b freed: serving hymba-1.5b the same way, at full
+        width and depth (32 layers, d_model 1600, 25 heads with 5 KV heads,
+        window 1024 but in layers 0, 15 and 31, d_inner 3200), one flash
+        attention and one selective-scan launch per layer of the prefill;
+        then (i) its logits checked and (j) its profile, with both kernels'
+        shares of device busy;
   4. each kernel against its plain version at its main path's shapes, and
      its time beside the plain version's, a library call's where one exists
      and the card's bound for the same work (for K2 also its TFLOP/s and
      share of the bound); K2 also against its plain version at
-     hymba-1.5b's attention shape (dh 64, GQA group 5, window 1024); K3 on
+     hymba-1.5b's attention shape (dh 64, GQA group 5, window 1024), and at
+     both shapes with each attention flag and with both (bf16, the plain
+     version given the same flags), each timed beside the flag-free time; K3 on
      init-like and trained-like inputs in bf16 and f32, its share of the
      bound, the special-function-unit floor at the SM clock read under load,
      its time at hymba-1.5b's shape and with one channel fewer than the
@@ -70,6 +82,9 @@ F_IMG = 224 * 224 * 3              # 150 528 = 588 * 256 features per image
 N_IMG, G_IMG = 40_000, 256         # store A records, global batch
 N_TOK, L_TOK, G_TOK = 262_144, 2_048, 4   # store B records, tokens, prompts
 DECODE_STEPS = 32
+SERVED = ("chatglm3-6b", "falcon-mamba-7b", "hymba-1.5b")
+# a wrapper's kernel as torch.profiler names it
+PROFILED_AS = {"flash_attention": "flash_fwd", "ssm_scan": "ssm_scan_kernel"}
 
 
 def log(msg: str) -> None:
@@ -110,6 +125,40 @@ def smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(report: str):
+    """(kernel symbol, line) for each register or spill line of a
+    ``ptxas -v`` report."""
+    fn = "?"
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)",
+                      line)
+        if m:
+            fn = m[1]
+        elif "registers" in line or "spill" in line:
+            yield fn, line.strip()
+
+
+def demangled(symbols) -> dict:
+    """{symbol: name<template arguments>} by the toolkit's cu++filt (flash
+    attention: <head dim, scale_in_q, probs_bf16>); symbols stay as they are
+    where the toolkit has no cu++filt."""
+    from repro_torch.kernels import _build
+
+    symbols = sorted(set(symbols))
+    tool = Path(_build.nvcc_path()).parent / "cu++filt"
+    if not tool.exists():
+        return {s: s for s in symbols}
+    out = subprocess.run([str(tool)], input="\n".join(symbols), capture_output=True,
+                         text=True, timeout=60, check=True).stdout.splitlines()
+    names = {}
+    for sym, d in zip(symbols, out):
+        d = d[:d.rfind("(")] if d.endswith(")") else d          # the parameters
+        d = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::|\((?:int|bool)\)",
+                   "", d)
+        names[sym] = d
+    return names
 
 
 def reference_small(dev, arch: str) -> None:
@@ -168,7 +217,7 @@ def device_tier(dev, out: dict):
     recs, x_host, q_host, s_host = image_store(dev, gen)
     store_a = DeviceStore(DeviceStoreConfig(N_IMG, recs.shape[1], 2.0), device=dev)
     arr_a = store_a.place(recs)
-    vocab = get_config("chatglm3-6b").vocab_size
+    vocab = min(get_config(arch).vocab_size for arch in SERVED)
     tokens = torch.randint(0, vocab, (N_TOK, L_TOK), generator=gen, device=dev,
                            dtype=torch.int32)
     store_b = DeviceStore(DeviceStoreConfig(N_TOK, L_TOK * 4, 2.0), device=dev)
@@ -268,14 +317,16 @@ def full_width_logits(tag: str, model, prompt) -> None:
 
 
 def device_profile(fn):
-    """Run ``fn`` under torch.profiler; return (device busy share of the
-    window spanned by its kernels, device busy ms, device ms by kernel
-    name)."""
+    """Run ``fn`` under torch.profiler, tracing the card's activity only
+    (recording the host's ops as well slows a call of many small ops enough
+    to leave gaps between its kernels that the unprofiled call does not
+    have); return (device busy share of the window spanned by its kernels,
+    device busy ms, device ms by kernel name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     spans = [(e.time_range.start, e.time_range.end, e.name)
@@ -290,10 +341,11 @@ def device_profile(fn):
     return busy / window, busy / 1e3, {n: us / 1e3 for n, us in by_name.items()}
 
 
-def profile_serving(tag: str, model, prompt, kernel: str) -> dict:
+def profile_serving(tag: str, model, prompt, kernels) -> dict:
     """Warm prefill time, then device busy share, top kernels and the share
-    of the device time spent in the kernel named ``kernel`` of one full
-    prefill and of 8 decode steps (outside the timed main path)."""
+    of the device time spent in each kernel whose name holds one of
+    ``kernels`` of one full prefill and of 8 decode steps (outside the timed
+    main path)."""
     state = {}
 
     def prefill():
@@ -320,12 +372,14 @@ def profile_serving(tag: str, model, prompt, kernel: str) -> dict:
                 log(f"[{tag}] {name}: profiler recorded no device time (not measured)")
                 continue
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-            k_ms = sum(ms for n, ms in by_name.items() if kernel in n)
+            k_ms = {k: sum(ms for n, ms in by_name.items() if k in n)
+                    for k in kernels}
             res[name] = dict(busy_share=share, busy_ms=busy_ms, kernel_ms=k_ms)
+            shares = "; ".join(f"{k} {ms:.3f} ms = {ms / busy_ms:.3f} of busy"
+                               for k, ms in k_ms.items())
             log(f"[{tag}] {name}: device busy {busy_ms:.3f} ms, {share:.3f} of the "
-                f"kernel window (torch.profiler); {kernel} {k_ms:.3f} ms = "
-                f"{k_ms / busy_ms:.3f} of busy; top kernels (name, ms): "
-                f"{[(n[:60], round(ms, 3)) for n, ms in top]}")
+                f"kernel window (torch.profiler); {shares}; top kernels "
+                f"(name, ms): {[(n[:60], round(ms, 3)) for n, ms in top]}")
     return res
 
 
@@ -425,11 +479,34 @@ def k3_sass() -> dict:
                                              enumerate(loop) if "LDG" in op))
 
 
-def kernel_rows(dev, out: dict, launches: dict):
+def flag_runs(flash_attention, ref, q, k, v, window) -> dict:
+    """K2 with each attention flag and with both against the plain version
+    given the same flags (bf16, tolerance 2e-2); each one's time, and the
+    flag-free time measured in turn with them."""
+    runs = {}
+    for name, flags in (("none", {}), ("scale_in_q", dict(scale_in_q=True)),
+                        ("probs_bf16", dict(probs_bf16=True)),
+                        ("both", dict(scale_in_q=True, probs_bf16=True))):
+        got = flash_attention(q, k, v, window=window, **flags)
+        want = ref.attention_ref(q, k, v, window=window, **flags)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+        runs[name] = dict(
+            max_abs_err=(got.float() - want.float()).abs().max().item(),
+            ms=time_ms(lambda: flash_attention(q, k, v, window=window, **flags), 10))
+        del got, want
+    return runs
+
+
+def kernel_rows(dev, out: dict, by_path: dict):
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant import dequant
     from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.kernels.ssm_scan import ssm_scan
+
+    def launches(name: str) -> dict:
+        return dict(launches=sum(c[name] for c in by_path.values()),
+                    launches_by_path={p: c[name] for p, c in by_path.items()
+                                      if c[name]})
 
     rows = []
     # K1 dequant at the fetched batch's shape (256, 150528) -> bf16
@@ -441,7 +518,7 @@ def kernel_rows(dev, out: dict, launches: dict):
     b_ms, b_by = bound(nbytes, q.numel(), PEAK_F32_FLOPS)
     rows.append(dict(
         name="dequant", route="cuda", source="src/repro_torch/csrc/dequant.cu",
-        replaces="src/repro/kernels/dequant.py:36", launches=launches["dequant"],
+        replaces="src/repro/kernels/dequant.py:36", **launches("dequant"),
         max_abs_err=0.0, ms=time_ms(lambda: dequant(q, s), 50),
         plain_ms=time_ms(lambda: ref.dequant_ref(q, s), 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
@@ -472,23 +549,23 @@ def kernel_rows(dev, out: dict, launches: dict):
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attn_fwd.cu",
         replaces="src/repro/kernels/flash_attn.py:86",
-        launches=launches["flash_attention"], max_abs_err=err, ms=k2_ms,
+        **launches("flash_attention"), max_abs_err=err, ms=k2_ms,
         plain_ms=time_ms(lambda: ref.attention_ref(qa, ka, va), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: sdpa(qs, ks, vs, is_causal=True), 10),
         tflops=flops / k2_ms / 1e9, bound_share=b_ms / k2_ms))
-    del qa, ka, va, qs, ks, vs, got, want, lib
-    # K2 again at hymba-1.5b's attention shape (GQA group 5, dh 64, window
-    # 1024), the next slice's; a check, not a row
+    del qs, ks, vs, got, want, lib
+    # with the attention flags, at chatglm3-6b's shape and at hymba-1.5b's
+    # (GQA group 5, dh 64, window 1024 as in 29 of its 32 layers)
     hb, hh, hkv, hdh, hwin = 4, 25, 5, 64, 1024
     qh, kh, vh = (torch.randn((hb, T, n, hdh), generator=gen, device=dev
                               ).to(torch.bfloat16) for n in (hh, hkv, hkv))
-    got = flash_attention(qh, kh, vh, window=hwin)
-    want = ref.attention_ref(qh, kh, vh, window=hwin)
-    hymba_err = (got.float() - want.float()).abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
-    hymba_ms = time_ms(lambda: flash_attention(qh, kh, vh, window=hwin), 10)
-    del qh, kh, vh, got, want
+    flag_ms = {"chatglm3-6b": flag_runs(flash_attention, ref, qa, ka, va, None),
+               "hymba-1.5b": flag_runs(flash_attention, ref, qh, kh, vh, hwin)}
+    rows[1]["flags"] = flag_ms
+    hymba_err = flag_ms["hymba-1.5b"]["none"]["max_abs_err"]
+    hymba_ms = flag_ms["hymba-1.5b"]["none"]["ms"]
+    del qa, ka, va, qh, kh, vh
 
     # K3 selective scan at falcon-mamba-7b's prefill shape, bf16 as on the
     # path, held to the plain version on init-like inputs (A = -(1..S)) and
@@ -535,7 +612,7 @@ def kernel_rows(dev, out: dict, launches: dict):
     del od
     rows.append(dict(
         name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
-        replaces="src/repro/kernels/ssm_scan.py:64", launches=launches["ssm_scan"],
+        replaces="src/repro/kernels/ssm_scan.py:64", **launches("ssm_scan"),
         max_abs_err=max(errs.values()), ms=k3_ms,
         plain_ms=time_ms(lambda: ref.ssm_scan_ref(*args16), 1, windows=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, bound_share=b_ms / k3_ms,
@@ -564,7 +641,13 @@ def kernel_rows(dev, out: dict, launches: dict):
         log(f"[4] {r['name']} {shapes[r['name']]}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
-            f"{r['max_abs_err']:.3g}, launches on the main path {r['launches']}")
+            f"{r['max_abs_err']:.3g}, launches on the main paths {r['launches']} "
+            f"{r['launches_by_path']}")
+    for shape, runs in flag_ms.items():
+        log(f"[4] flash_attention with the attention flags at {shape}'s shape "
+            f"(bf16, vs the plain version with the same flags, tol rtol=atol="
+            f"2e-2; ms, max_abs_err): " + ", ".join(
+                f"{f} {r['ms']:.4f} {r['max_abs_err']:.3g}" for f, r in runs.items()))
     return rows
 
 
@@ -594,51 +677,51 @@ def main() -> int:
     reports = _build.build(["dequant", "flash_attn_fwd", "ssm_scan"])
     log(f"[1] built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.2f} s")
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[1]   {name}: {line.strip()}")
+    lines = [(name, fn, line) for name, rep in reports.items()
+             for fn, line in ptxas_lines(rep)]
+    names = demangled(fn for _, fn, _ in lines)
+    for name, fn, line in lines:
+        log(f"[1]   {name} {names[fn]}: {line}")
 
-    reference_small(dev, "chatglm3-6b")
-    reference_small(dev, "falcon-mamba-7b")
+    for arch in SERVED:
+        reference_small(dev, arch)
 
-    # slice 1's path: the device tier feeding chatglm3-6b serving
+    # the main paths, each with the counts set to 0 just before it and read
+    # just after: the device tier, then each model serving the prompt it
+    # fetched (stores resident), one model at a time
     out: dict = {}
-    torch.cuda.reset_peak_memory_stats()
+    by_path: dict = {}
     zero_counts(kernels)
     prompt = device_tier(dev, out)
-    glm, model = serve_full(dev, "chatglm3-6b", "3b", prompt)
-    launches = {k.__name__: k.launches for k in kernels}
-    glm["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[3] device tier + chatglm3-6b launches {launches}; peak device memory "
-        f"{glm['peak_mem_gb']:.2f} GB")
-    check(launches["dequant"] >= 1, "dequant kernel launched on the main path")
-    check(launches["flash_attention"] == glm["layers"],
-          f"flash kernel launched once per layer of the one prefill ({glm['layers']})")
-    full_width_logits("3c", model, prompt)
-    glm["profile"] = profile_serving("3d", model, prompt, "flash_fwd")
-    del model
-    torch.cuda.empty_cache()
-
-    # the ssm path: falcon-mamba-7b serving the same prompt, stores resident
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts(kernels)
-    fm, model = serve_full(dev, "falcon-mamba-7b", "3e", prompt)
-    fm_launches = {k.__name__: k.launches for k in kernels}
-    fm["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[3e] falcon-mamba-7b launches {fm_launches}; peak device memory "
-        f"{fm['peak_mem_gb']:.2f} GB (stores resident)")
-    check(fm_launches["ssm_scan"] == fm["layers"],
-          f"ssm_scan kernel launched once per layer of the one prefill ({fm['layers']})")
-    launches["ssm_scan"] = fm_launches["ssm_scan"]
-    full_width_logits("3f", model, prompt)
-    fm["profile"] = profile_serving("3g", model, prompt, "ssm_scan_kernel")
-    del model
+    by_path["device tier"] = {k.__name__: k.launches for k in kernels}
+    check(by_path["device tier"]["dequant"] >= 1,
+          "dequant kernel launched on the main path")
+    serving = {}
+    for arch, tags, on_path in (
+            ("chatglm3-6b", "bcd", ("flash_attention",)),
+            ("falcon-mamba-7b", "efg", ("ssm_scan",)),
+            ("hymba-1.5b", "hij", ("flash_attention", "ssm_scan"))):
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        res, model = serve_full(dev, arch, f"3{tags[0]}", prompt)
+        counts = by_path[arch] = {k.__name__: k.launches for k in kernels}
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[3{tags[0]}] {arch} launches {counts}; peak device memory "
+            f"{res['peak_mem_gb']:.2f} GB (stores resident)")
+        for name in on_path:
+            check(counts[name] == res["layers"], f"{name} kernel launched once "
+                  f"per layer of {arch}'s one prefill ({res['layers']})")
+        full_width_logits(f"3{tags[1]}", model, prompt)
+        res["profile"] = profile_serving(f"3{tags[2]}", model, prompt,
+                                         [PROFILED_AS[n] for n in on_path])
+        serving[arch] = res
+        del model
+        torch.cuda.empty_cache()
     del out["stores"]
     torch.cuda.empty_cache()
 
-    rows = kernel_rows(dev, out, launches)
-    log("[5] " + json.dumps({"serve": {"chatglm3-6b": glm, "falcon-mamba-7b": fm},
+    rows = kernel_rows(dev, out, by_path)
+    log("[5] " + json.dumps({"serve": serving,
                              "fetch_decode_ms": out["fetch_decode_ms"]}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)

@@ -1,5 +1,5 @@
 """PyTorch/CUDA port of the FanStore device tier and its LM consumers (the
-dense and ssm families, served).
+dense, ssm and hybrid families, served).
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 layout (``configs``, ``core``, ``kernels``, ``models``, ``serve``,

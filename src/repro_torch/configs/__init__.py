@@ -1,4 +1,5 @@
-"""Config registry of the port: the four dense architectures and the ssm one.
+"""Config registry of the port: the four dense architectures, the ssm one and
+the hybrid one.
 
 ``get_config(name)`` returns the full published config; ``get_smoke(name)``
 the reduced same-family config the CPU tests use. The other architectures
@@ -18,6 +19,7 @@ ARCH_IDS: List[str] = [
     "qwen1.5-32b",
     "nemotron-4-15b",
     "falcon-mamba-7b",
+    "hymba-1.5b",
 ]
 
 _MODULES = {
@@ -26,11 +28,11 @@ _MODULES = {
     "qwen1.5-32b": "qwen1_5_32b",
     "nemotron-4-15b": "nemotron_4_15b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 # architectures of the reference package that wait for a later slice
 _NOT_YET: Dict[str, str] = {
-    "hymba-1.5b": "hybrid family: ROADMAP Queue 1 M11b (models/hybrid.py)",
     "granite-moe-3b-a800m": "moe family: ROADMAP Queue 1 M10",
     "deepseek-v2-236b": "moe/MLA family: ROADMAP Queue 1 M10",
     "musicgen-large": "audio family: ROADMAP Queue 1 M12",

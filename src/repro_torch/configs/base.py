@@ -2,8 +2,8 @@
 
 The port keeps its own copy (it imports nothing of ``repro``); the fields and
 defaults are identical so a config built here equals the reference's field
-for field (``tests/test_torch_model.py`` checks that). The ``dense`` and
-``ssm`` families have a model in this package so far.
+for field (``tests/test_torch_model.py`` checks that). The ``dense``, ``ssm``
+and ``hybrid`` families have a model in this package so far.
 """
 from __future__ import annotations
 

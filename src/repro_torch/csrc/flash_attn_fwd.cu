@@ -8,6 +8,23 @@
 // the kernel, the caller pads nothing). m, l and the accumulator are f32, l
 // is clamped at 1e-30 before the divide.
 //
+// The reference's two attention flags (layers.flash_attention_lax) are
+// template arguments of both paths, so the instances with neither flag are
+// the kernels as they were:
+//   * scale_in_q: q is multiplied by the scale in f32 and rounded back to
+//     its dtype before the product, which then takes no scale. The f32 path
+//     scales Q as it stages it; the bf16 path's consumers scale their 64
+//     rows of the Q tile in shared memory once per item, before its first
+//     product.
+//   * probs_bf16: the exp's argument s - m is rounded to bf16 in the natural
+//     domain (the bf16 path keeps S and m in it for this instance and folds
+//     log2 e into the exp2's argument after the rounding). P is not rounded
+//     after the exp beyond what P V does anyway (bf16 path), and l sums it
+//     as it comes: the reference rounds the exp's result to bf16 in its
+//     source, but XLA folds that round trip away (its compiled program takes
+//     the exp in f32 of the rounded argument), and ref.attention_ref and
+//     this kernel follow what the reference computes.
+//
 // Two paths, chosen by dtype.
 //
 // bf16 (dh == dv in {16, 32, 64, 128}; the dense models' prefill is 128):
@@ -81,6 +98,11 @@ constexpr int RPT = BQ / 16;     // query rows per thread
 constexpr int CPT = BK / 16;     // score columns per thread
 constexpr int OPT = MAXD / 16;   // output columns per thread
 
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <bool SCALE_Q, bool PROBS_BF16>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int T_len, int H,
@@ -104,7 +126,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int idx = tid; idx < BQ * dh; idx += THREADS) {
     const int r = idx / dh, d = idx - r * dh;
     const int t = q0 + r;
-    Qs[r * ldq + d] = t < T_len ? q[(((int64_t)b * T_len + t) * H + h) * dh + d] : 0.f;
+    const float x = t < T_len ? q[(((int64_t)b * T_len + t) * H + h) * dh + d] : 0.f;
+    Qs[r * ldq + d] = SCALE_Q ? x * scale : x;
   }
 
   float m[RPT], l[RPT], acc[RPT][OPT];
@@ -163,7 +186,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         bool live = kpos < T_len;
         if (causal) live = live && kpos <= qpos;
         if (window > 0) live = live && (qpos - kpos) < window;
-        s[i][j] = live ? s[i][j] * scale : NEG_INF;
+        s[i][j] = live ? (SCALE_Q ? s[i][j] : s[i][j] * scale) : NEG_INF;
         rowmax = fmaxf(rowmax, s[i][j]);
       }
       // the 16 threads of one row are lanes with equal ty in one warp
@@ -175,7 +198,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float rowsum = 0.f;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float x = s[i][j] - m_new;
+        const float p = expf(PROBS_BF16 ? round_bf16(x) : x);
         rowsum += p;
         Ps[(ty + 16 * i) * ldp + tx + 16 * j] = p;
       }
@@ -419,7 +443,10 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 struct Params {
   int* next_item;              // work counter, zero at launch
   int T_len, H, KV, B, n_qt, n_items, causal, window;
-  float scale_log2;
+  float score_scale;           // S's factor: scale * log2 e (exp2 domain); 1 in
+                               // place of scale with scale_in_q, no log2 e with
+                               // probs_bf16 (natural domain)
+  float q_scale;               // scale_in_q: Q's factor
 };
 
 // Register layout of a wgmma m64nN accumulator, per warpgroup thread with
@@ -431,18 +458,21 @@ struct Params {
 //
 // One tile's online-softmax step on S (64 x 128 keys from k0), in place:
 // sc becomes P = exp2(S * scale log2 e - m), m and l are updated and
-// alpha is the factor that rescales the accumulator. row0 and col0 are
+// alpha is the factor that rescales the accumulator. With PROBS_BF16, S
+// and m stay in the natural domain and P = exp2(bf16(S * scale - m) *
+// log2 e). row0 and col0 are
 // the thread's first row and column in the layout above. `edge` tiles
 // (across the diagonal, the window's lower edge or T) are masked: key k is
 // live for row r when r - window < k <= r (causal) and k < T, written as
 // per-row bounds on the key's column in the tile, so the mask is selects,
 // not branches.
+template <bool PROBS_BF16>
 __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              const Params& p, int row0, int col0,
                                              int k0, bool edge) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) sc[i] *= p.scale_log2;
+  for (int i = 0; i < 64; ++i) sc[i] *= p.score_scale;
   if (edge) {
     int lo[2], hi[2];                 // live columns lo..hi of the tile, per row
 #pragma unroll
@@ -465,13 +495,16 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
   for (int r = 0; r < 2; ++r) {       // a row's 4 owners are lanes 4g..4g+3
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    alpha[r] = fast_exp2(m[r] - mx[r]);
+    alpha[r] = fast_exp2(PROBS_BF16 ? (m[r] - mx[r]) * LOG2E : m[r] - mx[r]);
     m[r] = mx[r];
     l[r] *= alpha[r];
   }
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
-    sc[i] = fast_exp2(sc[i] - m[(i % 4) / 2]);
+    if constexpr (PROBS_BF16)
+      sc[i] = fast_exp2(round_bf16(sc[i] - m[(i % 4) / 2]) * LOG2E);
+    else
+      sc[i] = fast_exp2(sc[i] - m[(i % 4) / 2]);
     l[(i % 4) / 2] += sc[i];          // unrounded P; reduced across lanes at the end
   }
   // Pin the results here: without this the compiler sinks all of the
@@ -548,7 +581,27 @@ __device__ __forceinline__ Item item_at(int w, const Params& p) {
 // (ping-pong on named barriers 1 and 2), so one's softmax also runs under
 // the other's products instead of beside it. `g` counts kv tiles over all
 // of the block's items and gives each tile's ring stage and phase.
+// scale_in_q: q * scale in f32, rounded to bf16 (round to nearest even),
+// over one consumer's 64 rows of each box of a Q tile in shared memory;
+// the swizzle does not matter to an element-wise product.
 template <int D>
+__device__ __forceinline__ void scale_q_rows(uint8_t* rows, float scale) {
+  for (int i = threadIdx.x % 128; i < (D / BOX) * 64 * 128 / 16; i += 128) {
+    uint4* ptr = reinterpret_cast<uint4*>(rows + (i / 512) * BOX_BYTES + (i % 512) * 16);
+    uint4 w = *ptr;
+    uint32_t* words = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&words[j]));
+      words[j] = pack_bf16x2(f.x * scale, f.y * scale);
+    }
+    *ptr = w;
+  }
+  // the products read Q through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int D, bool SCALE_Q, bool PROBS_BF16>
 __device__ __forceinline__ void consumer(Smem<D>& sm, const CUtensorMap* map_o,
                                          const Params& p) {
   const int c = threadIdx.x / 128 - 1;            // consumer warpgroup 0 or 1
@@ -576,9 +629,13 @@ __device__ __forceinline__ void consumer(Smem<D>& sm, const CUtensorMap* map_o,
              (p.window > 0 && r_lo + 63 - k0 >= p.window);
     };
     const uint32_t q_addr = smem_u32(sm.q[qb][0]) + c * 64 * 128;
+    if constexpr (SCALE_Q) {
+      scale_q_rows<D>(reinterpret_cast<uint8_t*>(sm.q[qb][0]) + c * 64 * 128, p.q_scale);
+      warpgroup_sync(3 + c);
+    }
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    m[0] = m[1] = NEG_INF;             // running max, in the log2-scaled domain
+    m[0] = m[1] = NEG_INF;             // running max, in S's domain (softmax_tile)
     l[0] = l[1] = 0.f;                 // this thread's part of the row sums
 
     // the item's first kv tile: S, softmax
@@ -595,7 +652,7 @@ __device__ __forceinline__ void consumer(Smem<D>& sm, const CUtensorMap* map_o,
     wgmma_wait<0>();
     fence_regs(sc);
     mbar_arrive(&sm.empty_k[s]);
-    softmax_tile(sc, m, l, alpha, p, row0, col0, item.kt_hi * TK,
+    softmax_tile<PROBS_BF16>(sc, m, l, alpha, p, row0, col0, item.kt_hi * TK,
                  is_edge(item.kt_hi * TK));
     pack_p(pa, sc);
 
@@ -614,7 +671,7 @@ __device__ __forceinline__ void consumer(Smem<D>& sm, const CUtensorMap* map_o,
       wgmma_wait<1>();                  // S done, P V of the previous tile may still run
       fence_regs(sc);
       mbar_arrive(&sm.empty_k[s]);
-      softmax_tile(sc, m, l, alpha, p, row0, col0, k0, is_edge(k0));
+      softmax_tile<PROBS_BF16>(sc, m, l, alpha, p, row0, col0, k0, is_edge(k0));
       wgmma_wait<0>();
       fence_regs(acc);
       mbar_arrive(&sm.empty_v[gp % STAGES]);
@@ -674,7 +731,7 @@ __device__ __forceinline__ void consumer(Smem<D>& sm, const CUtensorMap* map_o,
 // The producer's one thread takes each next item, loads its Q into the
 // free one of two Q buffers and streams its K and V tiles through the ring;
 // it tells the consumers the item beside Q, and -1 when there is none.
-template <int D>
+template <int D, bool SCALE_Q, bool PROBS_BF16>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -743,7 +800,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consumer<D>(sm, &map_o, p);
+    consumer<D, SCALE_Q, PROBS_BF16>(sm, &map_o, p);
   }
 }
 
@@ -789,7 +846,7 @@ int encode_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int d, int h
 constexpr int ERR_NO_ENCODE = 20000;   // the driver has no cuTensorMapEncodeTiled
 constexpr int ERR_ENCODE = 10000;      // + the CUresult of a refused tensor map
 
-template <int D>
+template <int D, bool SCALE_Q, bool PROBS_BF16>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int* counter,
                  int B, int T_len, int H, int KV, int dh, float scale, int causal,
                  int window, cudaStream_t stream) {
@@ -809,7 +866,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int* coun
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+      e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, SCALE_Q, PROBS_BF16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) {
       sms = 0;
@@ -826,12 +883,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int* coun
   p.n_items = p.n_qt * B * H;
   p.causal = causal;
   p.window = window;
-  p.scale_log2 = scale * LOG2E;
+  p.score_scale = (SCALE_Q ? 1.f : scale) * (PROBS_BF16 ? 1.f : LOG2E);
+  p.q_scale = scale;
   const int grid = p.n_items < sms ? p.n_items : sms;   // one block per SM
-  flash_fwd_wgmma_kernel<D><<<grid, WG_THREADS, smem, stream>>>(mq, mk, mv, mo, p);
+  flash_fwd_wgmma_kernel<D, SCALE_Q, PROBS_BF16>
+      <<<grid, WG_THREADS, smem, stream>>>(mq, mk, mv, mo, p);
   return (int)cudaGetLastError();
 }
 
+template <bool SCALE_Q, bool PROBS_BF16>
 int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
                int T_len, int H, int KV, int dh, int dv, float scale, int causal,
                int window, cudaStream_t stream) {
@@ -843,20 +903,44 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
     const size_t max_smem = sizeof(float) *
         ((size_t)(BQ + BK) * (MAXD + 1) + (size_t)BK * MAXD + (size_t)BQ * (BK + 1));
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_smem);
+        flash_fwd_kernel<SCALE_Q, PROBS_BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)max_smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid((T_len + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<SCALE_Q, PROBS_BF16><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), T_len, H, KV, dh, dv, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
+template <bool SCALE_Q, bool PROBS_BF16>
+int launch(const void* q, const void* k, const void* v, void* o, void* counter, int B,
+           int T_len, int H, int KV, int dh, int dv, float scale, int causal, int window,
+           int is_bf16, cudaStream_t st) {
+  if (!is_bf16)
+    return launch_fma<SCALE_Q, PROBS_BF16>(q, k, v, o, B, T_len, H, KV, dh, dv, scale,
+                                           causal, window, st);
+  if (dh != dv) return (int)cudaErrorInvalidValue;
+  int* ctr = static_cast<int*>(counter);
+  switch (dh) {
+    case 16:
+    case 32:
+    case 64:
+      return launch_wgmma<64, SCALE_Q, PROBS_BF16>(q, k, v, o, ctr, B, T_len, H, KV, dh,
+                                                   scale, causal, window, st);
+    case 128:
+      return launch_wgmma<128, SCALE_Q, PROBS_BF16>(q, k, v, o, ctr, B, T_len, H, KV, dh,
+                                                    scale, causal, window, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // is_bf16: 1 for bfloat16 tensors, 0 for float32. window <= 0 means none.
+// scale_in_q, probs_bf16: the reference's attention flags, 0 or 1.
 // counter: one int on the card, zero, that the bf16 kernel uses to hand out
 // work (unused for f32). Requires B, T_len >= 1 and H % KV == 0; f32:
 // 1 <= dh, dv <= 128; bf16: dh == dv in {16, 32, 64, 128}, 16-byte aligned
@@ -868,21 +952,11 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k, const void* v,
                                      void* o, void* counter, int B, int T_len,
                                      int H, int KV, int dh, int dv, float scale,
-                                     int causal, int window, int is_bf16,
-                                     void* stream) {
+                                     int causal, int window, int scale_in_q,
+                                     int probs_bf16, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
-    return launch_fma(q, k, v, o, B, T_len, H, KV, dh, dv, scale, causal, window, st);
-  if (dh != dv) return (int)cudaErrorInvalidValue;
-  switch (dh) {
-    case 16:
-    case 32:
-    case 64:
-      return launch_wgmma<64>(q, k, v, o, static_cast<int*>(counter), B, T_len, H, KV,
-                              dh, scale, causal, window, st);
-    case 128:
-      return launch_wgmma<128>(q, k, v, o, static_cast<int*>(counter), B, T_len, H, KV,
-                               dh, scale, causal, window, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  auto* fn = scale_in_q ? (probs_bf16 ? &launch<true, true> : &launch<true, false>)
+                        : (probs_bf16 ? &launch<false, true> : &launch<false, false>);
+  return fn(q, k, v, o, counter, B, T_len, H, KV, dh, dv, scale, causal, window, is_bf16,
+            st);
 }

@@ -12,7 +12,8 @@ k (B, T, KV, dh), v (B, T, KV, dv) -> (B, T, H, dv) in q's dtype; H % KV == 0;
 {16, 32, 64, 128}. Any T works: the kernel masks the ragged last tile itself.
 bf16 runs on Hopper's wgmma with q, k, v staged by TMA, whose tensor maps
 need 16-byte aligned base addresses and strides that are multiples of 16
-bytes; the wrapper checks both.
+bytes; the wrapper checks both. ``scale_in_q`` and ``probs_bf16`` are the
+reference's attention flags, with ``kernels.ref.attention_ref``'s arithmetic.
 """
 from __future__ import annotations
 
@@ -34,14 +35,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn_fwd")
     fn = lib.flash_attn_fwd_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, scale_in_q: bool = False,
+                    probs_bf16: bool = False) -> torch.Tensor:
     """q: (B, T, H, dh); k, v: (B, T, KV, dh/dv), H % KV == 0 -> (B, T, H, dv)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel needs q, k, v on one CUDA "
@@ -81,8 +83,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     counter = torch.zeros((1,), dtype=torch.int32, device=q.device)  # work items
     err = _lib().flash_attn_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), counter.data_ptr(),
-        b, t, h, kv, dh, dv, scale, int(causal), window or 0,
-        _IS_BF16[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        b, t, h, kv, dh, dv, scale, int(causal), window or 0, int(scale_in_q),
+        int(probs_bf16), _IS_BF16[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err >= _ERR_ENCODE:
         raise RuntimeError(
             "flash_attention: the driver has no cuTensorMapEncodeTiled"

@@ -35,12 +35,14 @@ def dequant(q, scales, *, qblock: int = 256, out_dtype=torch.bfloat16,
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-              scale: Optional[float] = None,
+              scale: Optional[float] = None, scale_in_q: bool = False,
+              probs_bf16: bool = False,
               impl: Optional[str] = None) -> torch.Tensor:
+    flags = dict(causal=causal, window=window, scale=scale,
+                 scale_in_q=scale_in_q, probs_bf16=probs_bf16)
     if _pick(q, impl) == "ref":
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 scale=scale)
-    return flash_kernel(q, k, v, causal=causal, window=window, scale=scale)
+        return ref.attention_ref(q, k, v, **flags)
+    return flash_kernel(q, k, v, **flags)
 
 
 def ssm_scan(u, dt, b_in, c_in, a_log, d_skip, *,

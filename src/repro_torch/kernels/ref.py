@@ -59,19 +59,37 @@ def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b_in: torch.Tensor,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
-                  scale: Optional[float] = None) -> torch.Tensor:
+                  scale: Optional[float] = None, scale_in_q: bool = False,
+                  probs_bf16: bool = False) -> torch.Tensor:
     """Naive softmax attention. q: (B,Tq,H,dh); k,v: (B,Tk,KV,*).
 
     Query head h reads kv head h // (H/KV). When Tq != Tk the query block is
     aligned to the end of the keys. Probabilities are rounded to v's dtype
     before the product with v, as in the reference.
+
+    The two flags are ``layers.flash_attention_lax``'s arithmetic as XLA
+    compiles it: ``scale_in_q`` multiplies q by ``scale`` in f32 and rounds
+    it back to q's dtype, and the scores are then taken without a scale;
+    ``probs_bf16`` rounds the exp's argument ``s - m`` to bf16 and takes the
+    exp of that in f32, sums those values in f32 and divides the product of
+    P (in v's dtype) with v by that sum. The reference's source also rounds
+    the exp's result to bf16, but XLA removes that round trip (its compiled
+    program computes ``exp(f32(bf16(s - m)))``), so this follows what the
+    reference computes. ``m`` is the row's global max;
+    ``flash_attention_lax`` takes a running max over key blocks of 512, so
+    the two agree exactly for Tk <= 512 (one key block) and within bf16
+    rounding of the argument beyond.
     """
     b, tq, h, dh = q.shape
     tk, kv = k.shape[1], k.shape[2]
     g = h // kv
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    if scale_in_q:
+        q = (q.to(torch.float32) * scale).to(q.dtype)
     qg = q.reshape(b, tq, kv, g, dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32) * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32)
+    if not scale_in_q:
+        s = s * scale
     qpos = torch.arange(tq, device=q.device)[:, None]
     kpos = torch.arange(tk, device=q.device)[None, :]
     mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
@@ -80,6 +98,12 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None:
         mask &= (qpos + (tk - tq) - kpos) < window
     s = torch.where(mask, s, torch.tensor(-1e30, dtype=s.dtype, device=s.device))
-    p = torch.softmax(s, dim=-1)
+    if not probs_bf16:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+        return out.reshape(b, tq, h, v.shape[-1])
+    p = torch.exp((s - s.amax(-1, keepdim=True)).to(torch.bfloat16).to(torch.float32))
+    l = p.sum(-1)                                        # (b, kv, g, tq)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
-    return out.reshape(b, tq, h, v.shape[-1])
+    out = out.to(torch.float32) / l.permute(0, 3, 1, 2)[..., None]
+    return out.to(v.dtype).reshape(b, tq, h, v.shape[-1])

@@ -4,7 +4,8 @@ Counterpart of ``repro.launch.serve`` with the same flags plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch path). Weights are random,
 drawn from ``--seed``.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b --steps 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --steps 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b --preset full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --preset full
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --prompt-len 8
 """
@@ -42,7 +43,7 @@ def run(cfg: ModelConfig, tokens: torch.Tensor, *, steps: int,
 
 def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="chatglm3-6b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="hymba-1.5b", choices=ARCH_IDS)
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -30,9 +30,9 @@ def _leaves(tree: Mapping[str, Any], prefix: str = ""):
 
 def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig
                     ) -> Dict[str, torch.Tensor]:
-    """JAX dense- or ssm-model params (NumPy leaves) -> the port's state
-    dict. Tied embeddings have no ``out_embed`` on either side."""
-    if cfg.family not in ("dense", "ssm"):
+    """JAX dense-, ssm- or hybrid-model params (NumPy leaves) -> the port's
+    state dict. Tied embeddings have no ``out_embed`` on either side."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     sd: Dict[str, torch.Tensor] = {}
     for key in ("embed", "out_embed"):

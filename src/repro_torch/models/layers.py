@@ -7,20 +7,31 @@ Conventions, kept from the reference:
   * weight layouts are the reference's: ``wq (d, H, dh)``, ``wo (H, dh, d)``,
     ``wi (d, f)``, so converted JAX parameters load as they are.
 
-Prefill attention goes through ``kernels.ops.attention``: the CUDA flash
-kernel on a card, the plain version on the CPU. Decode attention (one query
-position against the cache) is plain PyTorch, as in the reference.
+Prefill attention goes through ``kernels.ops.attention`` with the layer's
+window and the config's ``attn_scale_in_q`` / ``attn_probs_bf16``: the CUDA
+flash kernel on a card, the plain version on the CPU. Decode attention (one
+query position against the cache) is plain PyTorch and reads neither flag,
+as in the reference.
+
+A layer's K/V cache is ``{"k", "v"}``, each (B, size, KV, dh) in the
+activation dtype, where ``size`` is ``max_len`` for global layers and
+``min(max_len, window)`` for sliding-window layers (a ring: position p sits
+at slot p % size). Decode writes the new position into it in place, where
+the reference returns an updated copy.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+Cache = Dict[str, torch.Tensor]
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -113,12 +124,34 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 # attention
 # ---------------------------------------------------------------------------
 
+def ring_fill(k: torch.Tensor, v: torch.Tensor, size: int,
+              dtype: torch.dtype) -> Cache:
+    """A cache of ``size`` slots holding the last ``size`` prefilled K/V
+    positions, position p at slot p % size (zeros past the prompt)."""
+    t = k.shape[1]
+    if t >= size:
+        shift = (t - size) % size
+        kc = torch.roll(k[:, t - size:], shifts=shift, dims=1)
+        vc = torch.roll(v[:, t - size:], shifts=shift, dims=1)
+        return {"k": kc.to(dtype), "v": vc.to(dtype)}
+    kc = k.new_zeros((k.shape[0], size) + tuple(k.shape[2:]), dtype=dtype)
+    vc = v.new_zeros((v.shape[0], size) + tuple(v.shape[2:]), dtype=dtype)
+    kc[:, :t] = k
+    vc[:, :t] = v
+    return {"k": kc, "v": vc}
+
+
 class Attention(nn.Module):
-    """GQA projections: ``wq (d, H, dh)``, ``wk/wv (d, KV, dh)``,
+    """Causal GQA attention of one layer, sliding-window when ``window`` is
+    set. Projections: ``wq (d, H, dh)``, ``wk/wv (d, KV, dh)``,
     ``wo (H, dh, d)``, optional q/k/v biases."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    def __init__(self, cfg: ModelConfig, window: Optional[int] = None, *,
+                 device, dtype):
         super().__init__()
+        self.window = window
+        self.flags = dict(scale_in_q=cfg.attn_scale_in_q,
+                          probs_bf16=cfg.attn_probs_bf16)
         d, h, kv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         self.wq = _param((d, h, dh), device, dtype)
         self.wk = _param((d, kv, dh), device, dtype)
@@ -156,6 +189,31 @@ class Attention(nn.Module):
         b, t, h, dv = a.shape
         wo = self.wo.to(a.dtype).reshape(h * dv, -1)
         return (a.reshape(b, t, h * dv) @ wo).to(x_dtype)
+
+    def forward(self, x: torch.Tensor, cos, sin,
+                max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+        """Full-sequence attention of x (B, T, d) -> (out (B, T, d), the
+        layer's K/V cache for ``max_len`` positions, or {} when None)."""
+        q, k, v = self.qkv(x, cos, sin)
+        a = ops.attention(q, k, v, causal=True, window=self.window, **self.flags)
+        cache = {}
+        if max_len is not None:
+            size = max_len if self.window is None else min(max_len, self.window)
+            cache = ring_fill(k, v, size, x.dtype)
+        return self.out(a, x.dtype), cache
+
+    def decode(self, x: torch.Tensor, cos, sin, cache: Cache,
+               cache_len: int) -> torch.Tensor:
+        """One position x (B, 1, d) at ``cache_len``; writes its K/V into
+        ``cache`` (a ring slot for windowed layers) and attends over the
+        ``min(cache_len + 1, size)`` valid slots."""
+        q, k, v = self.qkv(x, cos, sin)
+        size = cache["k"].shape[1]
+        slot = cache_len % size if self.window is not None else cache_len
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        a = decode_attention(q, cache["k"], cache["v"], min(cache_len + 1, size))
+        return self.out(a, x.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

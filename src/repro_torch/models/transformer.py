@@ -1,58 +1,37 @@
-"""Decoder LM of the ``dense`` and ``ssm`` families (counterpart of
-``repro.models.transformer``).
+"""Decoder LM of the ``dense``, ``ssm`` and ``hybrid`` families (counterpart
+of ``repro.models.transformer``).
 
 The reference stacks each segment's layers on a leading axis and runs them
 with ``lax.scan``; here the layers are a ``ModuleList`` of blocks
-(``DenseBlock`` for ``dense``, ``MambaBlock`` for ``ssm``) walked by a Python
-loop. Entry points mirror the reference's ``Model``: ``logits_full``
-(teacher-forced), ``prefill`` (last-position logits plus the caches) and
-``decode_step`` (one token against the caches).
+(``DenseBlock`` for ``dense``, ``MambaBlock`` for ``ssm``, ``HybridBlock``
+for ``hybrid``) walked by a Python loop. Entry points mirror the reference's
+``Model``: ``logits_full`` (teacher-forced), ``prefill`` (last-position
+logits plus the caches) and ``decode_step`` (one token against the caches).
 
-Caches are a list with one dict per layer. A dense layer's is ``{"k", "v"}``,
-each (B, size, KV, dh) in the activation dtype, where ``size`` is ``max_len``
-for global layers and ``min(max_len, window)`` for sliding-window layers (a
-ring: position p sits at slot p % size). A mamba layer's is ``{"h": (B, di, S)
-f32, "conv": (B, K-1, di)}``, whatever ``max_len``. ``decode_step`` writes
-the new position into the caches in place, where the reference returns
-updated copies.
+Caches are a list with one dict per layer. A dense layer's is ``{"k", "v"}``
+(``layers.Attention``: a ring of ``min(max_len, window)`` slots in
+sliding-window layers, ``max_len`` in global ones). A mamba layer's is
+``{"h": (B, di, S) f32, "conv": (B, K-1, di)}``, whatever ``max_len``. A
+hybrid layer's holds all four. ``decode_step`` writes the new position into
+the caches in place, where the reference returns updated copies.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
-from repro_torch.models.layers import (MLP, Attention, Norm, decode_attention,
-                                       rope_table)
+from repro_torch.models.hybrid import HybridBlock
+from repro_torch.models.layers import MLP, Attention, Cache, Norm, rope_table
 from repro_torch.models.mamba import MambaMixer
-
-Cache = Dict[str, torch.Tensor]
 
 
 def layer_window(cfg: ModelConfig, i: int) -> Optional[int]:
     """Sliding window of layer i (None = global attention)."""
     return None if (cfg.window is None or i in cfg.global_layers) else cfg.window
-
-
-def ring_fill(k: torch.Tensor, v: torch.Tensor, size: int,
-              dtype: torch.dtype) -> Cache:
-    """A cache of ``size`` slots holding the last ``size`` prefilled K/V
-    positions, position p at slot p % size (zeros past the prompt)."""
-    t = k.shape[1]
-    if t >= size:
-        shift = (t - size) % size
-        kc = torch.roll(k[:, t - size:], shifts=shift, dims=1)
-        vc = torch.roll(v[:, t - size:], shifts=shift, dims=1)
-        return {"k": kc.to(dtype), "v": vc.to(dtype)}
-    kc = k.new_zeros((k.shape[0], size) + tuple(k.shape[2:]), dtype=dtype)
-    vc = v.new_zeros((v.shape[0], size) + tuple(v.shape[2:]), dtype=dtype)
-    kc[:, :t] = k
-    vc[:, :t] = v
-    return {"k": kc, "v": vc}
 
 
 class DenseBlock(nn.Module):
@@ -61,9 +40,8 @@ class DenseBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, window: Optional[int], *, device,
                  dtype):
         super().__init__()
-        self.window = window
         self.norm1 = Norm(cfg, cfg.d_model, device=device, dtype=dtype)
-        self.attn = Attention(cfg, device=device, dtype=dtype)
+        self.attn = Attention(cfg, window, device=device, dtype=dtype)
         self.norm2 = Norm(cfg, cfg.d_model, device=device, dtype=dtype)
         self.mlp = MLP(cfg, device=device, dtype=dtype)
 
@@ -73,31 +51,18 @@ class DenseBlock(nn.Module):
         self.norm2.reset_parameters()
         self.mlp.reset_parameters(gen)
 
-    def _run(self, x, cos, sin
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Full-sequence block; returns (x, k, v) so prefill can cache k/v."""
-        q, k, v = self.attn.qkv(self.norm1(x), cos, sin)
-        a = ops.attention(q, k, v, causal=True, window=self.window)
-        x = x + self.attn.out(a, x.dtype)
-        return x + self.mlp(self.norm2(x)), k, v
-
     def forward(self, x, cos, sin) -> torch.Tensor:
-        return self._run(x, cos, sin)[0]
+        return self.prefill(x, cos, sin, None)[0]
 
-    def prefill(self, x, cos, sin, max_len: int) -> Tuple[torch.Tensor, Cache]:
-        x, k, v = self._run(x, cos, sin)
-        size = max_len if self.window is None else min(max_len, self.window)
-        return x, ring_fill(k, v, size, x.dtype)
+    def prefill(self, x, cos, sin, max_len: Optional[int]
+                ) -> Tuple[torch.Tensor, Cache]:
+        a, cache = self.attn(self.norm1(x), cos, sin, max_len)
+        x = x + a
+        return x + self.mlp(self.norm2(x)), cache
 
     def decode(self, x, cos, sin, cache: Cache, cache_len: int
                ) -> torch.Tensor:
-        q, k, v = self.attn.qkv(self.norm1(x), cos, sin)
-        size = cache["k"].shape[1]
-        slot = cache_len % size if self.window is not None else cache_len
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
-        a = decode_attention(q, cache["k"], cache["v"], min(cache_len + 1, size))
-        x = x + self.attn.out(a, x.dtype)
+        x = x + self.attn.decode(self.norm1(x), cos, sin, cache, cache_len)
         return x + self.mlp(self.norm2(x))
 
 
@@ -127,24 +92,26 @@ class MambaBlock(nn.Module):
         return x + self.mixer.decode(self.norm1(x), cache)
 
 
+def _block(cfg: ModelConfig, i: int, **kw) -> nn.Module:
+    if cfg.family == "ssm":
+        return MambaBlock(cfg, **kw)
+    if cfg.family == "hybrid":
+        return HybridBlock(cfg, layer_window(cfg, i), **kw)
+    return DenseBlock(cfg, layer_window(cfg, i), **kw)
+
+
 class Model(nn.Module):
-    """Config-driven dense or ssm LM with teacher-forced / prefill / decode
-    entry points. Parameters live on ``device`` in ``cfg.param_dtype``."""
+    """Config-driven dense, ssm or hybrid LM with teacher-forced / prefill /
+    decode entry points. Parameters live on ``device`` in
+    ``cfg.param_dtype``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported to repro_torch yet "
-                "(ROADMAP Queue 1: hybrid M11b, moe M10, audio/vlm M12); "
-                "'dense' and 'ssm' run")
-        if not cfg.attention_free:
-            for flag in ("attn_scale_in_q", "attn_probs_bf16"):
-                if getattr(cfg, flag):
-                    raise NotImplementedError(
-                        f"{flag}=True is not ported to repro_torch yet: its "
-                        "attention would compute other numbers than the "
-                        "reference's (ROADMAP Queue 1)")
+                "(ROADMAP Queue 1: moe M10, audio/vlm M12); 'dense', 'ssm' "
+                "and 'hybrid' run")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -157,10 +124,8 @@ class Model(nn.Module):
             torch.empty((cfg.vocab_size, cfg.d_model), device=dev, dtype=pdt),
             requires_grad=False)
         self.final_norm = Norm(cfg, cfg.d_model, device=dev, dtype=pdt)
-        self.layers = nn.ModuleList(
-            MambaBlock(cfg, device=dev, dtype=pdt) if cfg.family == "ssm"
-            else DenseBlock(cfg, layer_window(cfg, i), device=dev, dtype=pdt)
-            for i in range(cfg.num_layers))
+        self.layers = nn.ModuleList(_block(cfg, i, device=dev, dtype=pdt)
+                                    for i in range(cfg.num_layers))
 
     # -- init ----------------------------------------------------------------
     @torch.no_grad()

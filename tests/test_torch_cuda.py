@@ -9,7 +9,11 @@ even on both sides); f32 flash attention within 1e-5 (f32 FMAs against
 cuBLAS f32 products, summed in another order); bf16 flash attention (wgmma
 tensor cores) within 2e-2 (P rounded to bf16 before P.V on both sides, but
 the kernel rounds the running-max-relative P and the plain version the
-normalised one). The selective scan within rtol = atol = 1e-4 in both
+normalised one). With the attention flags: ``scale_in_q`` is the same
+arithmetic on both sides, and so is ``probs_bf16`` where the row's keys are
+one tile of the f32 path (64); past one tile the kernel rounds the exp's
+argument to bf16 against its running max and the plain version against the
+row's global max, so f32 outputs agree within the bf16 tolerance. The selective scan within rtol = atol = 1e-4 in both
 dtypes: bf16 inputs are widened to f32 exactly on both sides before any
 arithmetic, so only f32 rounding differs (2^x by ex2.approx, within ~2e-7
 relative, with log2(e) folded into A, against exp; sums in another order). The models on the card in f32 match
@@ -100,6 +104,33 @@ def test_flash_attention_kernel_vs_plain(cuda, b, t, h, kv, dh, dv, win, dtype):
     want = ref.attention_ref(q, k, v, causal=True, window=win)
     torch.testing.assert_close(got.float(), want.float(),
                                **(F32 if dtype == torch.float32 else BF16))
+
+
+FLAG_SHAPES = [
+    # b, t, h, kv, dh, window
+    (1, 64, 4, 2, 32, None),            # one key tile of the f32 path
+    (2, 200, 32, 2, 128, None),         # chatglm3-6b's heads, ragged T
+    (1, 1500, 25, 5, 64, 1024),         # hymba-1.5b's heads and window
+]
+
+
+@pytest.mark.parametrize("flags", [dict(scale_in_q=True), dict(probs_bf16=True),
+                                   dict(scale_in_q=True, probs_bf16=True)],
+                         ids=lambda f: "+".join(f))
+@pytest.mark.parametrize("b,t,h,kv,dh,win", FLAG_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_flags_vs_plain(cuda, dtype, b, t, h, kv, dh,
+                                               win, flags):
+    gen = torch.Generator(cuda).manual_seed(2)
+    q, k, v = (torch.randn((b, t, n, dh), generator=gen, device=cuda).to(dtype)
+               for n in (h, kv, kv))
+    before = flash_kernel.launches
+    got = ops.attention(q, k, v, window=win, **flags)
+    assert flash_kernel.launches == before + 1
+    want = ref.attention_ref(q, k, v, window=win, **flags)
+    exact = dtype == torch.float32 and (t <= 64 or not flags.get("probs_bf16"))
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32 if exact else BF16))
 
 
 @pytest.mark.parametrize("dtype,dh,t", [(torch.float32, 32, 100),
@@ -260,18 +291,22 @@ def test_device_tier_on_card_matches_cpu(cuda):
     assert out["cuda"][1].item()                    # cap 8 < 16 requests
 
 
-@pytest.mark.parametrize("arch,kernel", [("chatglm3-6b", flash_kernel),
-                                         ("falcon-mamba-7b", ssm_kernel)])
-def test_model_on_card_matches_cpu(cuda, arch, kernel):
+PREFILL_KERNELS = {"dense": (flash_kernel,), "ssm": (ssm_kernel,),
+                   "hybrid": (flash_kernel, ssm_kernel)}
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "falcon-mamba-7b", "hymba-1.5b"])
+def test_model_on_card_matches_cpu(cuda, arch):
     cfg = get_smoke(arch).scaled(remat=False, dtype="float32")
+    kernels = PREFILL_KERNELS[cfg.family]
     cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     card = build_model(cfg, device=cuda)
     card.load_state_dict(cpu.state_dict())
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 100)).astype(np.int32))
-    before = kernel.launches
+    before = [k.launches for k in kernels]
     lc, _ = card.prefill(toks.to(cuda), 110)
-    assert kernel.launches == before + cfg.num_layers
+    assert [k.launches for k in kernels] == [n + cfg.num_layers for n in before]
     lp, _ = cpu.prefill(toks, 110)
     torch.testing.assert_close(lc.cpu(), lp, rtol=1e-4, atol=1e-4)
     assert torch.equal(generate(card, toks, steps=6).cpu(),

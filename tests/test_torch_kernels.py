@@ -5,7 +5,9 @@ against these plain versions are in ``test_torch_cuda.py``.
 Tolerances: dequant is exact (one f32 multiply, one round to nearest even on
 both sides); f32 attention agrees within 1e-5 (same math, sums in another
 order); bf16 attention within 2e-2 (bf16 inputs rounded alike, products
-summed in another order).
+summed in another order). With ``probs_bf16`` the plain version takes the
+row's global max, which is ``flash_attention_lax``'s running max when all
+keys are one key block, so those cases run the reference with one.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -105,13 +107,46 @@ def test_attention_plain_vs_reference_and_pallas(rng, b, t, h, kv, dh, dv, win, 
     np.testing.assert_allclose(got, np.asarray(pallas), **F32)
 
 
+FLAG_SETS = [dict(), dict(scale_in_q=True), dict(probs_bf16=True),
+             dict(scale_in_q=True, probs_bf16=True)]
+
+
+def _lax(q, k, v, *, window=None, **flags):
+    """flash_attention_lax on numpy or bf16 inputs; a single key block
+    when ``probs_bf16`` is set (see the module docstring)."""
+    block_k = q.shape[1] if flags.get("probs_bf16") else 32
+    return flash_attention_lax(q, k, v, causal=True, window=window,
+                               block_q=32, block_k=block_k, **flags)
+
+
+@pytest.mark.parametrize("flags", FLAG_SETS,
+                         ids=lambda f: "+".join(f) or "plain")
 @pytest.mark.parametrize("win", [None, 40])
-def test_attention_plain_vs_flash_attention_lax(rng, win):
+def test_attention_plain_vs_flash_attention_lax(rng, win, flags):
     q, k, v = _qkv(rng, 2, 96, 4, 2, 32, 32)
-    got = ref.attention_ref(*map(torch.from_numpy, (q, k, v)), window=win)
-    want = flash_attention_lax(*map(jnp.asarray, (q, k, v)), causal=True,
-                               window=win, block_q=32, block_k=32)
+    got = ref.attention_ref(*map(torch.from_numpy, (q, k, v)), window=win,
+                            **flags)
+    want = _lax(*map(jnp.asarray, (q, k, v)), window=win, **flags)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("flag", ["scale_in_q", "probs_bf16"])
+def test_attention_flag_takes_effect(rng, flag):
+    # probs_bf16 moves f32 outputs by ~1e-3; scale_in_q only rounds q * scale
+    # to q's dtype, which shows in bf16 (dh 32: the scale is no power of 2)
+    q, k, v = _qkv(rng, 2, 96, 4, 2, 32, 32)
+    if flag == "scale_in_q":
+        tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+        jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    else:
+        tq, tk, tv = map(torch.from_numpy, (q, k, v))
+        jq, jk, jv = map(jnp.asarray, (q, k, v))
+    got = ref.attention_ref(tq, tk, tv, **{flag: True}).float().numpy()
+    with_flag = np.asarray(_lax(jq, jk, jv, **{flag: True}), np.float32)
+    without = np.asarray(_lax(jq, jk, jv), np.float32)
+    tol = F32 if flag == "probs_bf16" else dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got, with_flag, **tol)
+    assert np.abs(got - with_flag).mean() < np.abs(got - without).mean()
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -1,4 +1,4 @@
-"""Dense and ssm LMs: the PyTorch port against the JAX reference from
+"""Dense, ssm and hybrid LMs: the PyTorch port against the JAX reference from
 identical weights.
 
 For each ported smoke config (float32 activations), the JAX ``Model.init``
@@ -27,8 +27,16 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 B, T, DECODE = 2, 12, 8
 
 CASES = {arch: {} for arch in ARCH_IDS}
-# a dense model with a sliding-window layer exercises the ring cache
+# a sliding-window layer exercises the ring cache; with a window of 8 it
+# wraps during prefill and again during the 8 decode steps
 CASES["chatglm3-6b/swa"] = dict(window=8, global_layers=(0,))
+CASES["hymba-1.5b/swa"] = dict(window=8, global_layers=(0, 3))
+# both attention flags (the JAX dry-run's setting); T <= 512 is one key
+# block of flash_attention_lax, where the plain version's arithmetic is its
+FLAGS = dict(attn_scale_in_q=True, attn_probs_bf16=True)
+CASES["chatglm3-6b/flags"] = FLAGS
+CASES["hymba-1.5b/flags"] = FLAGS
+CACHE_KEYS = {"ssm": {"h", "conv"}, "hybrid": {"k", "v", "h", "conv"}}
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -85,7 +93,7 @@ def test_prefill_logits_and_caches(pair):
     _close(tl, jl)
     jc = _segment_caches(jc, jmodel)
     assert len(tc) == len(jc)
-    keys = {"ssm": {"h", "conv"}}.get(model.cfg.family, {"k", "v"})
+    keys = CACHE_KEYS.get(model.cfg.family, {"k", "v"})
     for a, b in zip(tc, jc):
         assert set(a) == set(b) == keys
         for key in a:
@@ -120,13 +128,6 @@ def test_generate_tokens_identical(pair):
 
 
 ATTN_FLAGS = ["attn_scale_in_q", "attn_probs_bf16"]
-
-
-@pytest.mark.parametrize("flag", ATTN_FLAGS)
-def test_dense_model_refuses_unported_attention_flag(flag):
-    cfg = get_smoke("chatglm3-6b").scaled(remat=False, dtype="float32")
-    with pytest.raises(NotImplementedError, match=flag):
-        build_model(cfg.scaled(**{flag: True}), device="cpu")
 
 
 @pytest.mark.parametrize("flag", ATTN_FLAGS)

@@ -22,12 +22,16 @@ def no_cuda():
         pytest.skip("checks the behaviour of a machine without a CUDA card")
 
 
-def test_serve_main_on_cpu(capsys):
-    out = serve.main(["--arch", "chatglm3-6b", "--device", "cpu",
-                      "--prompt-len", "8", "--steps", "4", "--batch", "2"])
+@pytest.mark.parametrize("arch", ["chatglm3-6b", None],
+                         ids=["chatglm3-6b", "default"])
+def test_serve_main_on_cpu(capsys, arch):
+    pick = [] if arch is None else ["--arch", arch]
+    out = serve.main(pick + ["--device", "cpu", "--prompt-len", "8",
+                             "--steps", "4", "--batch", "2"])
     assert tuple(out.shape) == (2, 4) and out.dtype == torch.int32
-    assert int(out.max()) < get_smoke("chatglm3-6b").vocab_size
-    assert "generated (2, 4)" in capsys.readouterr().out
+    arch = arch or "hymba-1.5b"          # the reference's default
+    assert int(out.max()) < get_smoke(arch).vocab_size
+    assert f"{arch} on cpu: generated (2, 4)" in capsys.readouterr().out
 
 
 def test_serve_run_is_deterministic_and_times_phases():
@@ -85,7 +89,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert ops.dequant(q, s).dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "hymba-1.5b",
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "musicgen-large",
                                   "deepseek-v2-236b", "internvl2-76b"])
 def test_unported_archs_name_the_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -104,3 +108,18 @@ def test_full_chatglm3_config_shape():
     embeds = 2 * cfg.vocab_size * cfg.d_model
     total = embeds + cfg.d_model + 28 * per_layer
     assert 6.2e9 < total < 6.3e9
+
+
+def test_full_hymba_config_shape():
+    cfg = get_config("hymba-1.5b")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.d_inner, cfg.ssm_state,
+            cfg.vocab_size) == (32, 1600, 25, 5, 64, 5504, 3200, 16, 32001)
+    assert (cfg.window, cfg.global_layers) == (1024, (0, 15, 31))
+    model = build_model(cfg.scaled(num_layers=2), device="meta")
+    assert [blk.attn.window for blk in model.layers] == [None, 1024]
+    per_layer = sum(p.numel() for p in model.layers[1].parameters())
+    embeds = 2 * cfg.vocab_size * cfg.d_model
+    total = embeds + cfg.d_model + 32 * per_layer
+    assert total == model.param_count() + 30 * per_layer
+    assert 1.5e9 < total < 1.7e9
