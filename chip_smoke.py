@@ -2,16 +2,20 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
   python3 chip_smoke.py            (from the root of a checkout; needs one card)
+  python3 chip_smoke.py --serve-ab PARENT [--rounds N]
+      (serving phase only: PARENT's port and this one's in turns, below)
 
 Phases, each of which raises on a failed check:
   1. environment: torch version, the card's name and power limit; build the
-     three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each, in
+     four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print ptxas' registers and spills per kernel instance
-     (flash attention: one per head dim and setting of the two attention
-     flags);
+     (flash attention: one per head dim, setting of the two attention flags
+     and LSE output; its backward: one per head dim and kernel);
   2. references at a small size: the chatglm3, falcon-mamba and hymba smoke
      models in f32 on the card (through the kernels) against the same
-     weights on the CPU (plain path);
+     weights on the CPU (plain path); then training: the chatglm3 smoke
+     model's loss and every gradient on the card (K2 and its backward, K2b)
+     against the CPU's, and one AdamW step's parameters;
   3. the main paths, each with every kernel launch counter set to 0 just
      before it and read just after:
      a. device tier: a block-quantized ImageNet-size record store
@@ -36,6 +40,14 @@ Phases, each of which raises on a failed check:
         attention and one selective-scan launch per layer of the prefill;
         then (i) its logits checked and (j) its profile, with both kernels'
         shares of device busy;
+     k. with hymba-1.5b and the stores freed: training chatglm3-6b at full
+        width and 12 of its 28 layers (f32 parameters, gradients and AdamW
+        moments, bf16 compute, remat) through ``repro_torch.launch.train.run``:
+        4 steps of a 4 x 2048 global batch fetched from its token store,
+        24 K2 and 12 K2b launches a step, the loss and every parameter
+        finite after each step; step time, tokens/s, the model-FLOP share
+        of the bf16 peak, peak memory, a profile of a fifth, warm step, and
+        the device time of a sixth one's forward, backward and AdamW update;
   4. each kernel against its plain version at its main path's shapes, and
      its time beside the plain version's, a library call's where one exists
      and the card's bound for the same work (for K2 also its TFLOP/s and
@@ -48,14 +60,30 @@ Phases, each of which raises on a failed check:
      its time at hymba-1.5b's shape and with one channel fewer than the
      path's (D not a multiple of 8: element-wise staging), and what
      cuobjdump shows of its time loop (registers, spills, instructions and
-     MUFU.EX2 per update).
+     MUFU.EX2 per update); K2b against the plain backward at chatglm3-6b's
+     training shape and hymba-1.5b's, its time beside its bound, SDPA's
+     backward and K2's with and without the LSE output; K2's LSE against
+     the plain one taken in f32, and K2 then K2b against the plain forward
+     then the plain backward in f32.
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` name/power
 line and ``{"ok": true, "device": ...}``. Without a card, or without the rest
 of the repository, it exits non-zero and prints no result.
+
+``--serve-ab PARENT`` compares the serving times of two checkouts on one
+card: PARENT (another checkout of the repository, for example a parent
+commit unpacked with ``git archive``) and this one. Both ports are imported
+into one process, so they share its CUDA context, libraries and allocator,
+and serve in turns (parent, this, this, parent) ``--rounds`` times, after
+one unrecorded turn each. A turn serves the three models as in phase 3
+(through ``launch.serve.run``: a prefill and 32 decode steps, then a warm
+prefill) and times a pure-Python loop, which shows how fast the host was
+(decode is host-bound). It prints each turn and each tree's medians.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -68,7 +96,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): device memory bytes/s,
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
@@ -83,8 +110,12 @@ N_IMG, G_IMG = 40_000, 256         # store A records, global batch
 N_TOK, L_TOK, G_TOK = 262_144, 2_048, 4   # store B records, tokens, prompts
 DECODE_STEPS = 32
 SERVED = ("chatglm3-6b", "falcon-mamba-7b", "hymba-1.5b")
+# training: chatglm3-6b at full width, depth cut to what one card holds
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_STEPS = "chatglm3-6b", 12, 4, 4
+TRAIN_SAMPLES = 8_192              # its token store: 8192 x 2048 tokens, 64 MiB
 # a wrapper's kernel as torch.profiler names it
-PROFILED_AS = {"flash_attention": "flash_fwd", "ssm_scan": "ssm_scan_kernel"}
+PROFILED_AS = {"flash_attention": "flash_fwd", "ssm_scan": "ssm_scan_kernel",
+               "flash_attention_bwd": "flash_bwd"}
 
 
 def log(msg: str) -> None:
@@ -182,6 +213,54 @@ def reference_small(dev, arch: str) -> None:
     check(same, "small greedy tokens card == cpu")
     log(f"[2] small reference: {arch} smoke f32 prefill logits card vs cpu "
         f"max_abs_err={err:.3g} (tol 1e-4); greedy tokens identical")
+
+
+def reference_train_small(dev) -> None:
+    """The chatglm3 smoke model in f32, remat on: loss and every gradient on
+    the card (K2 + K2b) against the CPU (plain path) within 1e-4, then one
+    AdamW step's parameters within 1e-5. eps 1e-4 keeps the update off the
+    gradients' rounding noise (the key bias's gradient is zero in the dims
+    RoPE leaves alone, and Adam would scale its noise up to lr)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    cfg = get_smoke(TRAIN_ARCH).scaled(dtype="float32", loss_chunk=64)
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (4, 100)).astype(np.int32))
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    losses = []
+    for model, t in ((card, toks.to(dev)), (cpu, toks)):
+        loss, _ = model.loss(t)
+        loss.backward()
+        losses.append(loss.item())
+    counts = (flash_attention.launches - before[0], flash_attention_bwd.launches - before[1])
+    check(counts == (2 * cfg.num_layers, cfg.num_layers),
+          f"small training: K2, K2b launches {counts} == (2, 1) x layers")
+    cpu_p = dict(cpu.named_parameters())
+    loss_err = abs(losses[0] - losses[1])
+    grad_err = max((p.grad.cpu() - cpu_p[n].grad).abs().max().item()
+                   for n, p in card.named_parameters())
+    check(loss_err <= 1e-4 and grad_err <= 1e-4,
+          f"small training loss err {loss_err}, grad err {grad_err} <= 1e-4")
+    ocfg = OptimizerConfig(lr=1e-3, eps=1e-4, warmup_steps=2, total_steps=4)
+    for model, t in ((card, toks.to(dev)), (cpu, toks)):
+        params = dict(model.named_parameters())
+        make_train_step(model, ocfg)(TrainState(params, adamw_init(params)),
+                                     {"tokens": t})
+    step_err = max((p.detach().cpu() - cpu_p[n].detach()).abs().max().item()
+                   for n, p in card.named_parameters())
+    check(step_err <= 1e-5, f"small training AdamW step params err {step_err} <= 1e-5")
+    log(f"[2] small training: {TRAIN_ARCH} smoke f32, remat, 4 x 100 tokens: card "
+        f"(K2 {counts[0]}, K2b {counts[1]} launches) vs cpu loss err {loss_err:.3g}, "
+        f"max grad err {grad_err:.3g} (tol 1e-4); one AdamW step's params max err "
+        f"{step_err:.3g} (tol 1e-5)")
 
 
 def image_store(dev, gen):
@@ -341,6 +420,16 @@ def device_profile(fn):
     return busy / window, busy / 1e3, {n: us / 1e3 for n, us in by_name.items()}
 
 
+def warm_prefill_ms(model, prompt) -> float:
+    """Host-clock ms of one prefill of ``prompt`` by a model that has served."""
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(prompt, prompt.shape[1] + 8)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def profile_serving(tag: str, model, prompt, kernels) -> dict:
     """Warm prefill time, then device busy share, top kernels and the share
     of the device time spent in each kernel whose name holds one of
@@ -357,15 +446,10 @@ def profile_serving(tag: str, model, prompt, kernels) -> dict:
             logits, _ = model.decode_step(nxt, state["caches"], prompt.shape[1] + i)
             nxt = torch.argmax(logits, dim=-1)[:, None]
 
-    res = {}
+    res = {"warm_prefill_ms": warm_prefill_ms(model, prompt)}
+    log(f"[{tag}] warm prefill {tuple(prompt.shape)}: "
+        f"{res['warm_prefill_ms']:.2f} ms host clock")
     with torch.inference_mode():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prefill()
-        torch.cuda.synchronize()
-        res["warm_prefill_ms"] = (time.perf_counter() - t0) * 1e3
-        log(f"[{tag}] warm prefill {tuple(prompt.shape)}: "
-            f"{res['warm_prefill_ms']:.2f} ms host clock")
         for name, fn in (("prefill", prefill), ("decode x8", decode)):
             share, busy_ms, by_name = device_profile(fn)
             if share is None:
@@ -381,6 +465,127 @@ def profile_serving(tag: str, model, prompt, kernels) -> dict:
                 f"kernel window (torch.profiler); {shares}; top kernels "
                 f"(name, ms): {[(n[:60], round(ms, 3)) for n, ms in top]}")
     return res
+
+
+def train_full(dev, counters) -> dict:
+    """[3k] chatglm3-6b at full width, 12 layers, trained 4 steps through
+    ``launch.train.run``; a fifth, warm step under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    full = get_config(TRAIN_ARCH)
+    cfg = full.scaled(num_layers=TRAIN_LAYERS)
+    per_layer = sum(p.numel() for p in build_model(
+        full.scaled(num_layers=1), device="meta").layers[0].parameters())
+    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32",
+          "training config: remat, bf16 compute, f32 parameters")
+    log(f"[3k] {TRAIN_ARCH} training at full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads, KV {cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), depth cut {full.num_layers} -> {cfg.num_layers} layers: "
+        f"f32 parameters, gradients and both AdamW moments take 16 B a parameter, "
+        f"{full.num_layers} layers would need "
+        f"{16 * (full.num_layers * per_layer + 2 * cfg.vocab_size * cfg.d_model) / 1e9:.1f}"
+        f" GB of the card's 80")
+    seen = {"k2": 0, "k2b": 0}
+    per_step = []
+
+    def on_step(n, rec, state):
+        k2, k2b = (counters["flash_attention"].launches,
+                   counters["flash_attention_bwd"].launches)
+        per_step.append((k2 - seen["k2"], k2b - seen["k2b"]))
+        seen.update(k2=k2, k2b=k2b)
+        finite = math.isfinite(rec["loss"]) and all(
+            bool(torch.isfinite(p).all()) for p in state.params.values())
+        check(finite, f"step {n}: loss and every parameter finite")
+        log(f"[3k] step {n}: loss {rec['loss']:.4f} (ln {cfg.vocab_size} = "
+            f"{math.log(cfg.vocab_size):.2f}), grad_norm {rec['grad_norm']:.4f}, "
+            f"lr {rec['lr']:.3e}, {rec['step_s'] * 1e3:.1f} ms host clock")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.run(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_B, seq_len=L_TOK,
+                    num_samples=TRAIN_SAMPLES, seed=SEED, device=dev,
+                    log=lambda m: log(f"[3k] {m}"), on_step=on_step)
+    run_s = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in counters.items()}    # the main path's
+    for n, (k2, k2b) in enumerate(per_step, 1):
+        check(k2 == 2 * cfg.num_layers and k2b == cfg.num_layers,
+              f"step {n}: K2 {k2} == 2 x {cfg.num_layers} (forward + remat "
+              f"recompute), K2b {k2b} == {cfg.num_layers}")
+    hist = out["history"]
+    warm = [r["step_s"] for r in hist[1:]]
+    tokens = TRAIN_B * L_TOK
+    params = out["model"].param_count()
+    n_mm = params - cfg.vocab_size * cfg.d_model          # the input lookup does no product
+    pairs = TRAIN_B * cfg.num_heads * L_TOK * (L_TOK + 1) // 2
+    attn = 3 * cfg.num_layers * pairs * 4 * cfg.head_dim  # forward and backward
+    model_flops = 6 * n_mm * tokens + attn
+    res = dict(layers=cfg.num_layers, params=params, steps=hist,
+               cold_step_ms=hist[0]["step_s"] * 1e3,
+               warm_step_ms=[t * 1e3 for t in warm],
+               tokens_per_s=tokens / statistics.median(warm),
+               model_flops=model_flops,
+               mfu=model_flops / statistics.median(warm) / PEAK_BF16_FLOPS,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches_per_step=per_step, run_s=run_s, counts=counts)
+    log(f"[3k] {cfg.num_layers} layers, {params / 1e9:.3f} B params; cold step "
+        f"{res['cold_step_ms']:.1f} ms, warm steps "
+        f"{', '.join(f'{t:.1f}' for t in res['warm_step_ms'])} ms (host clock, fetch "
+        f"+ step + synchronize); {res['tokens_per_s']:.0f} tokens/s; model FLOPs "
+        f"6 N tokens + causal attention 3 x 4 dh pairs (N = {n_mm / 1e9:.3f} B "
+        f"parameters in products, remat recompute not counted) = "
+        f"{model_flops:.4g} a step, {res['mfu']:.3f} of {PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s bf16 at the median warm step; peak device memory "
+        f"{res['peak_mem_gb']:.2f} GB; launches per step (K2, K2b) {per_step}; "
+        f"run() incl. init and token store {run_s:.1f} s")
+
+    def step():
+        out["state"], _ = out["step"](out["state"], out["batch"])
+
+    share, busy_ms, by_name = device_profile(step)
+    if share is None:
+        log("[3k] profile: profiler recorded no device time (not measured)")
+    else:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        k_ms = {k: sum(ms for n, ms in by_name.items() if k in n)
+                for k in ("flash_fwd", "flash_bwd")}
+        res["profile"] = dict(busy_share=share, busy_ms=busy_ms, kernel_ms=k_ms)
+        log(f"[3k] profile of one warm step: device busy {busy_ms:.2f} ms, "
+            f"{share:.3f} of the kernel window (torch.profiler); "
+            + "; ".join(f"{k} {ms:.2f} ms = {ms / busy_ms:.3f} of busy"
+                        for k, ms in k_ms.items())
+            + f"; top kernels (name, ms): {[(n[:60], round(ms, 2)) for n, ms in top]}")
+    res["phases_ms"] = step_phases(out)
+    log("[3k] one more warm step by CUDA events (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in res["phases_ms"].items()))
+    del out
+    return res
+
+
+def step_phases(out) -> dict:
+    """Device time of the phases of one training step: the forward (loss),
+    the backward (with each layer's remat recompute) and the AdamW update."""
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_update
+
+    model, params = out["model"], out["state"].params
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for p in params.values():
+        p.grad = None
+    ev[0].record()
+    loss, _ = model.loss(out["batch"]["tokens"])
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    grads = {n: p.grad for n, p in params.items()}
+    adamw_update(OptimizerConfig(lr=1e-3), params, grads, out["state"].opt)
+    ev[3].record()
+    ev[3].synchronize()
+    for p in params.values():
+        p.grad = None
+    return {"forward": ev[0].elapsed_time(ev[1]),
+            "backward with recompute": ev[1].elapsed_time(ev[2]),
+            "adamw": ev[2].elapsed_time(ev[3])}
 
 
 K3_SHAPE = (4, 2048, 8192, 16)          # falcon-mamba-7b prefill: B, T, D, S
@@ -497,10 +702,59 @@ def flag_runs(flash_attention, ref, q, k, v, window) -> dict:
     return runs
 
 
+def bwd_runs(flash_attention, flash_attention_bwd, ref, q, k, v, window) -> dict:
+    """K2 with its LSE output and K2b against the plain versions at one
+    shape (bf16 inputs). K2's LSE against the plain one taken in f32 from
+    the widened q and k (the kernel's scores are f32 sums of exact products:
+    rtol 1e-5, atol 1e-4) and from bf16 scores as the plain bf16 forward
+    takes them (2e-2); K2b's gradients against the plain backward given the
+    kernel's o and lse (2e-2); and K2 then K2b against the plain forward
+    then the plain backward in f32 on the widened inputs, which holds the
+    kernels' o, lse and gradients to the exact arithmetic together: each
+    gradient's normwise relative error <= 1e-2. That check is normwise
+    because P and dS are rounded to bf16, as the reference rounds them, and
+    a key's gradient sums up to T x H/KV such terms, so single elements of
+    even the plain bf16 path stray past 2e-2 of f32 where the sum cancels;
+    a wrong LSE scales every P of its row and moves the norm."""
+    o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+    do = torch.randn(o.shape, generator=torch.Generator(q.device).manual_seed(SEED + 13),
+                     device=q.device).to(q.dtype)
+    wide = [x.float() for x in (q, k, v)]
+    o32, lse32 = ref.attention_ref(*wide, window=window, return_lse=True)
+    torch.testing.assert_close(lse, lse32, rtol=1e-5, atol=1e-4)
+    exact = ref.attention_bwd_ref(*wide, o32, lse32, do.float(), window=window)
+    lse32_err = (lse - lse32).abs().max().item()
+    del wide, o32, lse32
+    o_ref, lse_ref = ref.attention_ref(q, k, v, window=window, return_lse=True)
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=2e-2, atol=2e-2)
+    lse_err = (lse - lse_ref).abs().max().item()
+    del o_ref, lse_ref
+    got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, window=window)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=2e-2)
+    e2e = [((g.float() - x).norm() / x.norm()).item() for g, x in zip(got, exact)]
+    check(max(e2e) <= 1e-2, f"K2 then K2b vs the plain f32 forward and backward: "
+          f"normwise relative errors (dq, dk, dv) {e2e} <= 1e-2")
+    again = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K2b: two runs give the same gradients")
+    res = dict(max_abs_err=max((g.float() - w.float()).abs().max().item()
+                               for g, w in zip(got, want)),
+               e2e_rel_err=e2e, e2e_max_abs_err=max((g.float() - x).abs().max().item()
+                                                    for g, x in zip(got, exact)),
+               lse_max_abs_err=lse_err, lse_f32_max_abs_err=lse32_err,
+               args=(o, lse, do))
+    del got, want, exact, again
+    return res
+
+
 def kernel_rows(dev, out: dict, by_path: dict):
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant import dequant
     from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd
     from repro_torch.kernels.ssm_scan import ssm_scan
 
     def launches(name: str) -> dict:
@@ -538,11 +792,11 @@ def kernel_rows(dev, out: dict, by_path: dict):
     nbytes = 2 * (qa.numel() + ka.numel() + va.numel() + got.numel())
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
     g = H // KV
-    qs, ks, vs = (qa.transpose(1, 2).contiguous(),
-                  ka.repeat_interleave(g, dim=2).transpose(1, 2).contiguous(),
-                  va.repeat_interleave(g, dim=2).transpose(1, 2).contiguous())
+    qs_, ks_, vs_ = (qa.transpose(1, 2).contiguous(),
+                     ka.repeat_interleave(g, dim=2).transpose(1, 2).contiguous(),
+                     va.repeat_interleave(g, dim=2).transpose(1, 2).contiguous())
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = sdpa(qs, ks, vs, is_causal=True).transpose(1, 2)
+    lib = sdpa(qs_, ks_, vs_, is_causal=True).transpose(1, 2)
     lib_err = (lib.float() - want.float()).abs().max().item()
     k2_ms = time_ms(lambda: flash_attention(qa, ka, va), 10)
     rows.append(dict(
@@ -552,9 +806,9 @@ def kernel_rows(dev, out: dict, by_path: dict):
         **launches("flash_attention"), max_abs_err=err, ms=k2_ms,
         plain_ms=time_ms(lambda: ref.attention_ref(qa, ka, va), 2),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: sdpa(qs, ks, vs, is_causal=True), 10),
+        library_ms=time_ms(lambda: sdpa(qs_, ks_, vs_, is_causal=True), 10),
         tflops=flops / k2_ms / 1e9, bound_share=b_ms / k2_ms))
-    del qs, ks, vs, got, want, lib
+    del got, want, lib
     # with the attention flags, at chatglm3-6b's shape and at hymba-1.5b's
     # (GQA group 5, dh 64, window 1024 as in 29 of its 32 layers)
     hb, hh, hkv, hdh, hwin = 4, 25, 5, 64, 1024
@@ -565,6 +819,42 @@ def kernel_rows(dev, out: dict, by_path: dict):
     rows[1]["flags"] = flag_ms
     hymba_err = flag_ms["hymba-1.5b"]["none"]["max_abs_err"]
     hymba_ms = flag_ms["hymba-1.5b"]["none"]["ms"]
+
+    # K2b at chatglm3-6b's training shape (the same q, k, v) and hymba-1.5b's
+    bw = {"chatglm3-6b": bwd_runs(flash_attention, flash_attention_bwd, ref, qa, ka, va, None),
+          "hymba-1.5b": bwd_runs(flash_attention, flash_attention_bwd, ref, qh, kh, vh, hwin)}
+    o, lse, do = bw["chatglm3-6b"].pop("args")
+    _, _, do_h = hymba_args = bw["hymba-1.5b"].pop("args")
+    bw_flops = 2.5 * flops                  # five products where the forward has two
+    bw_bytes = 2 * (qa.numel() + ka.numel() + va.numel() + 2 * o.numel()) + 4 * lse.numel() \
+        + 2 * (qa.numel() + ka.numel() + va.numel())
+    b_ms, b_by = bound(bw_bytes, bw_flops, PEAK_BF16_FLOPS)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (qs_, ks_, vs_))
+    lib_out = sdpa(qs, ks, vs, is_causal=True)
+    dos = do.transpose(1, 2).contiguous()
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dos,
+                                                     retain_graph=True), 10)
+    k2b_ms = time_ms(lambda: flash_attention_bwd(qa, ka, va, o, lse, do), 5)
+    k2_ms_a = time_ms(lambda: flash_attention(qa, ka, va), 10)        # without, with,
+    k2_lse_a = time_ms(lambda: flash_attention(qa, ka, va, return_lse=True), 10)
+    k2_lse_b = time_ms(lambda: flash_attention(qa, ka, va, return_lse=True), 10)
+    k2_ms_b = time_ms(lambda: flash_attention(qa, ka, va), 10)        # with, without
+    hymba_bwd_ms = time_ms(lambda: flash_attention_bwd(qh, kh, vh, *hymba_args[:2], do_h,
+                                                       window=hwin), 5)
+    rows.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attn_bwd.cu",
+        replaces="src/repro/models/layers.py:129",
+        note="no TPU kernel: the backward JAX derives from flash_attention_lax",
+        **launches("flash_attention_bwd"),
+        max_abs_err=bw["chatglm3-6b"]["max_abs_err"], ms=k2b_ms,
+        plain_ms=time_ms(lambda: ref.attention_bwd_ref(qa, ka, va, o, lse, do), 1,
+                         windows=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd_ms,
+        tflops=bw_flops / k2b_ms / 1e9, bound_share=b_ms / k2b_ms,
+        hymba_ms=hymba_bwd_ms, by_shape=bw,
+        k2_ms=[k2_ms_a, k2_ms_b], k2_lse_ms=[k2_lse_a, k2_lse_b]))
+    del qs, ks, vs, qs_, ks_, vs_, lib_out, dos, o, lse, do, hymba_args, do_h
     del qa, ka, va, qh, kh, vh
 
     # K3 selective scan at falcon-mamba-7b's prefill shape, bf16 as on the
@@ -619,24 +909,49 @@ def kernel_rows(dev, out: dict, by_path: dict):
         mufu_floor_ms=mufu_ms, sm_clock_mhz=mhz, hymba_ms=hy_ms,
         odd_d_ms=od_ms, ms_after_odd_d=k3_ms2, sass=k3_sass()))
     del args16
+    by = {r["name"]: r for r in rows}
     shapes = {"dequant": f"q {[n, f]} int8 -> bf16",
               "flash_attention": f"B,T,H,KV,dh={[B, T, H, KV, DH]} bf16 causal, "
                                  f"tol rtol=atol=2e-2; SDPA vs plain max_abs_err "
-                                 f"{lib_err:.3g}; {rows[1]['tflops']:.1f} TFLOP/s, "
-                                 f"{rows[1]['bound_share']:.3f} of the bound; at "
+                                 f"{lib_err:.3g}; {by['flash_attention']['tflops']:.1f} TFLOP/s, "
+                                 f"{by['flash_attention']['bound_share']:.3f} of the bound; at "
                                  f"hymba's B,T,H,KV,dh,window="
                                  f"{[hb, T, hh, hkv, hdh, hwin]} max_abs_err "
                                  f"{hymba_err:.3g} (tol 2e-2), {hymba_ms:.4f} ms",
               "ssm_scan": f"B,T,D,S={list(K3_SHAPE)} bf16 in, f32 out, tol "
                           f"rtol=atol=1e-4; max_abs_err "
                           f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; "
-                          f"{rows[2]['bound_share']:.3f} of the bound; MUFU floor "
+                          f"{by['ssm_scan']['bound_share']:.3f} of the bound; MUFU floor "
                           f"{mufu_ms:.4f} ms at {mhz:.0f} MHz under load; at "
                           f"hymba's B,T,D,S={list(K3_HYMBA)} {hy_ms:.4f} ms "
                           f"(max_abs_err {hy_err:.3g}); at D={K3_ODD[2]} "
                           f"(element-wise staging) {od_ms:.4f} ms (max_abs_err "
                           f"{od_err:.3g}), then at D={d3} again {k3_ms2:.4f} ms; "
-                          f"SASS {rows[2]['sass']}"}
+                          f"SASS {by['ssm_scan']['sass']}",
+              "flash_attention_bwd": f"B,T,H,KV,dh={[B, T, H, KV, DH]} bf16 causal (chatglm3-6b's "
+                                     f"training shape), tol rtol=atol=2e-2, deterministic; "
+                                     f"{by['flash_attention_bwd']['tflops']:.1f} TFLOP/s, "
+                                     f"{by['flash_attention_bwd']['bound_share']:.3f} of the bound (2.5 x the "
+                                     f"forward's {flops:.4g} FLOP); library = SDPA's backward "
+                                     f"alone, kv heads repeated; K2 without / with LSE "
+                                     f"{k2_ms_a:.4f} / {k2_lse_a:.4f}, {k2_lse_b:.4f} / "
+                                     f"{k2_ms_b:.4f} ms; K2 then K2b vs the plain forward "
+                                     f"then backward in f32: normwise relative error (dq, dk, dv) "
+                                     f"{[round(e, 5) for e in bw['chatglm3-6b']['e2e_rel_err']]} "
+                                     f"(tol 1e-2), max_abs_err "
+                                     f"{bw['chatglm3-6b']['e2e_max_abs_err']:.3g}; "
+                                     f"LSE max_abs_err vs f32 scores "
+                                     f"{bw['chatglm3-6b']['lse_f32_max_abs_err']:.3g} (tol "
+                                     f"rtol 1e-5, atol 1e-4), vs bf16 scores "
+                                     f"{bw['chatglm3-6b']['lse_max_abs_err']:.3g}; at hymba's "
+                                     f"B,T,H,KV,dh,window={[hb, T, hh, hkv, hdh, hwin]} "
+                                     f"{hymba_bwd_ms:.4f} ms, max_abs_err "
+                                     f"{bw['hymba-1.5b']['max_abs_err']:.3g}, K2 then K2b vs f32 "
+                                     f"{[round(e, 5) for e in bw['hymba-1.5b']['e2e_rel_err']]} "
+                                     f"normwise, max_abs_err "
+                                     f"{bw['hymba-1.5b']['e2e_max_abs_err']:.3g}, LSE vs f32 "
+                                     f"{bw['hymba-1.5b']['lse_f32_max_abs_err']:.3g}, vs bf16 "
+                                     f"{bw['hymba-1.5b']['lse_max_abs_err']:.3g}"}
     for r in rows:
         log(f"[4] {r['name']} {shapes[r['name']]}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
@@ -656,17 +971,115 @@ def zero_counts(kernels) -> None:
         k.launches = 0
 
 
-def main() -> int:
+def host_loop_ms() -> float:
+    """Host-clock ms of a fixed pure-Python loop: how fast the host ran."""
+    t0, x = time.perf_counter(), 0
+    for i in range(2_000_000):
+        x += i
+    return (time.perf_counter() - t0) * 1e3
+
+
+def import_port(root: Path):
+    """Import the port of the checkout at ``root`` afresh (its kernels built
+    into its own ``build/``); returns its ``launch.serve`` and the served
+    configs. What was built from a port imported before keeps using that
+    port's modules."""
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
+    src = str(root / "src")
+    sys.path.insert(0, src)
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import _build
+        from repro_torch.launch import serve
+        _build.build(["flash_attn_fwd", "ssm_scan"])
+        cfgs = {a: get_config(a).scaled(remat=False, param_dtype="bfloat16")
+                for a in SERVED}
+    finally:
+        sys.path.remove(src)
+    return serve, cfgs
+
+
+def serve_turn(dev, port, prompt) -> dict:
+    """One turn of ``--serve-ab``: each served model built with ``port``
+    from SEED, a cold prefill and 32 decode steps (``serve.run``, as in
+    phase 3), then a warm prefill."""
+    serve, cfgs = port
+    res = {"host_loop_ms": host_loop_ms()}
+    for arch, cfg in cfgs.items():
+        _, t, model = serve.run(cfg, prompt, steps=DECODE_STEPS + 1, seed=SEED,
+                                device=dev)
+        res[arch] = dict(prefill_ms=t["prefill_s"] * 1e3,
+                         warm_prefill_ms=warm_prefill_ms(model, prompt),
+                         decode_ms_per_step=t["decode_s"] * 1e3 / DECODE_STEPS)
+        del model
+        torch.cuda.empty_cache()
+    return res
+
+
+def serve_ab(parent: Path, rounds: int) -> int:
+    """``--serve-ab PARENT``: PARENT's port and this one's, both imported in
+    this process, serve in turns (parent, this, this, parent) ``rounds``
+    times after one unrecorded turn each."""
+    check((parent / "src" / "repro_torch").is_dir(),
+          f"{parent} holds a checkout of the port")
+    dev = torch.device("cuda")
+    ports = {"parent": import_port(parent.resolve()), "this": import_port(ROOT)}
+    vocab = min(cfg.vocab_size for cfg in ports["this"][1].values())
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, vocab, (G_TOK, L_TOK)).astype(np.int32)).to(dev)
+    for name in ports:                          # first use of each, not recorded
+        serve_turn(dev, ports[name], prompt)
+    runs: dict = {"parent": [], "this": []}
+    for r in range(rounds):
+        for name in ("parent", "this", "this", "parent"):
+            res = serve_turn(dev, ports[name], prompt)
+            runs[name].append(res)
+            log(f"[ab] round {r + 1} {name}: host loop {res['host_loop_ms']:.1f} ms; "
+                + "; ".join(f"{a} prefill {res[a]['prefill_ms']:.2f}, warm "
+                            f"{res[a]['warm_prefill_ms']:.2f}, decode "
+                            f"{res[a]['decode_ms_per_step']:.3f} ms/step"
+                            for a in SERVED))
+    keys = ["host_loop_ms"] + [f"{a} {m}" for a in SERVED for m in
+                               ("prefill_ms", "warm_prefill_ms", "decode_ms_per_step")]
+
+    def value(res: dict, key: str) -> float:
+        arch, _, metric = key.rpartition(" ")
+        return res[arch][metric] if arch else res[metric]
+
+    summary = {k: {name: [value(res, k) for res in rs] for name, rs in runs.items()}
+               for k in keys}
+    for k, by_tree in summary.items():
+        log(f"[ab] {k}: " + "; ".join(
+            f"{name} median {statistics.median(v):.3f} (min {min(v):.3f}, max "
+            f"{max(v):.3f})" for name, v in by_tree.items()))
+    print(json.dumps({"serve_ab": summary}), flush=True)
+    print(smi_line(), flush=True)
+    return 0
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
+                                 "port on one NVIDIA card.")
+    ap.add_argument("--serve-ab", type=Path, metavar="PARENT",
+                    help="compare PARENT's serving times with this checkout's")
+    ap.add_argument("--rounds", type=int, default=3,
+                    help="turns of parent, this, this, parent (--serve-ab)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible; nothing was run",
               file=sys.stderr)
         return 2
+    if args.serve_ab:
+        return serve_ab(args.serve_ab, args.rounds)
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.dequant import dequant
     from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd
     from repro_torch.kernels.ssm_scan import ssm_scan
 
-    kernels = (dequant, flash_attention, ssm_scan)
+    kernels = (dequant, flash_attention, flash_attention_bwd, ssm_scan)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -674,7 +1087,7 @@ def main() -> int:
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"card {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    reports = _build.build(["dequant", "flash_attn_fwd", "ssm_scan"])
+    reports = _build.build(["dequant", "flash_attn_fwd", "flash_attn_bwd", "ssm_scan"])
     log(f"[1] built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.2f} s")
     lines = [(name, fn, line) for name, rep in reports.items()
@@ -685,10 +1098,11 @@ def main() -> int:
 
     for arch in SERVED:
         reference_small(dev, arch)
+    reference_train_small(dev)
 
     # the main paths, each with the counts set to 0 just before it and read
     # just after: the device tier, then each model serving the prompt it
-    # fetched (stores resident), one model at a time
+    # fetched (stores resident), one model at a time, then training
     out: dict = {}
     by_path: dict = {}
     zero_counts(kernels)
@@ -711,6 +1125,7 @@ def main() -> int:
         for name in on_path:
             check(counts[name] == res["layers"], f"{name} kernel launched once "
                   f"per layer of {arch}'s one prefill ({res['layers']})")
+        check(counts["flash_attention_bwd"] == 0, "serving launches no backward")
         full_width_logits(f"3{tags[1]}", model, prompt)
         res["profile"] = profile_serving(f"3{tags[2]}", model, prompt,
                                          [PROFILED_AS[n] for n in on_path])
@@ -720,8 +1135,13 @@ def main() -> int:
     del out["stores"]
     torch.cuda.empty_cache()
 
+    zero_counts(kernels)
+    training = train_full(dev, {k.__name__: k for k in kernels})
+    by_path["training " + TRAIN_ARCH] = training.pop("counts")
+    torch.cuda.empty_cache()
+
     rows = kernel_rows(dev, out, by_path)
-    log("[5] " + json.dumps({"serve": serving,
+    log("[5] " + json.dumps({"serve": serving, "train": training,
                              "fetch_decode_ms": out["fetch_decode_ms"]}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
@@ -732,4 +1152,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

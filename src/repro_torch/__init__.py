@@ -1,11 +1,12 @@
 """PyTorch/CUDA port of the FanStore device tier and its LM consumers (the
-dense, ssm and hybrid families, served).
+dense, ssm and hybrid families, served; the dense family, trained).
 
 The JAX package ``repro`` is the reference; this package mirrors its module
-layout (``configs``, ``core``, ``kernels``, ``models``, ``serve``,
-``launch``) and imports nothing from it. The three Pallas kernels of the
-reference are hand-written CUDA C++ for Hopper here (``csrc/``), built with
-``nvcc`` at first use and loaded with ``ctypes``.
+layout (``configs``, ``core``, ``data``, ``kernels``, ``models``, ``serve``,
+``train``, ``launch``) and imports nothing from it. The three Pallas
+kernels of the reference, and the attention backward that training needs,
+are hand-written CUDA C++ for Hopper here (``csrc/``), built with ``nvcc``
+at first use and loaded with ``ctypes``.
 
 Device policy: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``. A CUDA request on a machine without a card raises; nothing

@@ -25,6 +25,11 @@
 //     the exp in f32 of the rounded argument), and ref.attention_ref and
 //     this kernel follow what the reference computes.
 //
+// The row log-sum-exp, lse = m + ln l (B, H, T) f32, is written for the
+// backward kernel (flash_attn_bwd.cu) by instances with the template
+// argument LSE, launched only when it is asked for and only without the two
+// flags; the instances without it are the kernels as they were.
+//
 // Two paths, chosen by dtype.
 //
 // bf16 (dh == dv in {16, 32, 64, 128}; the dense models' prefill is 128):
@@ -102,11 +107,12 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <bool SCALE_Q, bool PROBS_BF16>
+template <bool SCALE_Q, bool PROBS_BF16, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int T_len, int H,
-                 int KV, int dh, int dv, float scale, int causal, int window) {
+                 int KV, int dh, int dv, float scale, int causal, int window,
+                 float* __restrict__ lse) {
   extern __shared__ float smem[];
   const int ldq = dh + 1;                 // padded row stride of Qs / Ks
   const int ldp = BK + 1;
@@ -234,6 +240,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int t = q0 + ty + 16 * i;
     if (t >= T_len) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (LSE && tx == 0) lse[((int64_t)b * H + h) * T_len + t] = m[i] + logf(l[i]);
     float* orow = o + (((int64_t)b * T_len + t) * H + h) * dv;
 #pragma unroll
     for (int j = 0; j < OPT; ++j) {
@@ -254,6 +261,7 @@ constexpr int WG_THREADS = 384;    // producer warpgroup + 2 consumer warpgroups
 constexpr int BOX = 64;            // bf16 columns per TMA box: one 128-byte swizzle row
 constexpr int BOX_BYTES = TQ * BOX * 2;   // one 128-row box, 16 KB (TQ == TK)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Every tile is D / BOX boxes of [128 rows][64 columns], 128-byte swizzled.
 template <int D>
@@ -447,6 +455,7 @@ struct Params {
                                // place of scale with scale_in_q, no log2 e with
                                // probs_bf16 (natural domain)
   float q_scale;               // scale_in_q: Q's factor
+  float* lse;                  // LSE instances: (B, H, T) f32
 };
 
 // Register layout of a wgmma m64nN accumulator, per warpgroup thread with
@@ -601,9 +610,10 @@ __device__ __forceinline__ void scale_q_rows(uint8_t* rows, float scale) {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-template <int D, bool SCALE_Q, bool PROBS_BF16>
+template <int D, bool SCALE_Q, bool PROBS_BF16, bool LSE>
 __device__ __forceinline__ void consumer(Smem<D>& sm, const CUtensorMap* map_o,
                                          const Params& p) {
+  static_assert(!(LSE && PROBS_BF16), "the LSE is taken in the exp2 domain");
   const int c = threadIdx.x / 128 - 1;            // consumer warpgroup 0 or 1
   const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
@@ -704,6 +714,11 @@ __device__ __forceinline__ void consumer(Smem<D>& sm, const CUtensorMap* map_o,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       const int row = 16 * warp + lane / 4 + 8 * r;        // within the warpgroup's 64
+      if constexpr (LSE) {   // m and l are in the exp2 domain: back to natural units
+        if (lane % 4 == 0 && r_lo + row < p.T_len)
+          p.lse[((int64_t)item.b * p.H + item.h) * p.T_len + r_lo + row] =
+              (m[r] + log2f(l[r])) * LN2;
+      }
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj) {
         const int chunk = (jj % 8) ^ (row % 8);             // the swizzled 16-byte chunk
@@ -731,7 +746,7 @@ __device__ __forceinline__ void consumer(Smem<D>& sm, const CUtensorMap* map_o,
 // The producer's one thread takes each next item, loads its Q into the
 // free one of two Q buffers and streams its K and V tiles through the ring;
 // it tells the consumers the item beside Q, and -1 when there is none.
-template <int D, bool SCALE_Q, bool PROBS_BF16>
+template <int D, bool SCALE_Q, bool PROBS_BF16, bool LSE>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -800,7 +815,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consumer<D, SCALE_Q, PROBS_BF16>(sm, &map_o, p);
+    consumer<D, SCALE_Q, PROBS_BF16, LSE>(sm, &map_o, p);
   }
 }
 
@@ -846,10 +861,10 @@ int encode_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int d, int h
 constexpr int ERR_NO_ENCODE = 20000;   // the driver has no cuTensorMapEncodeTiled
 constexpr int ERR_ENCODE = 10000;      // + the CUresult of a refused tensor map
 
-template <int D, bool SCALE_Q, bool PROBS_BF16>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int* counter,
-                 int B, int T_len, int H, int KV, int dh, float scale, int causal,
-                 int window, cudaStream_t stream) {
+template <int D, bool SCALE_Q, bool PROBS_BF16, bool LSE>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                 int* counter, int B, int T_len, int H, int KV, int dh, float scale,
+                 int causal, int window, cudaStream_t stream) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODE;
   CUtensorMap mq, mk, mv, mo;
@@ -866,7 +881,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int* coun
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, SCALE_Q, PROBS_BF16>,
+      e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, SCALE_Q, PROBS_BF16, LSE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) {
       sms = 0;
@@ -885,14 +900,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int* coun
   p.window = window;
   p.score_scale = (SCALE_Q ? 1.f : scale) * (PROBS_BF16 ? 1.f : LOG2E);
   p.q_scale = scale;
+  p.lse = lse;
   const int grid = p.n_items < sms ? p.n_items : sms;   // one block per SM
-  flash_fwd_wgmma_kernel<D, SCALE_Q, PROBS_BF16>
+  flash_fwd_wgmma_kernel<D, SCALE_Q, PROBS_BF16, LSE>
       <<<grid, WG_THREADS, smem, stream>>>(mq, mk, mv, mo, p);
   return (int)cudaGetLastError();
 }
 
-template <bool SCALE_Q, bool PROBS_BF16>
-int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
+template <bool SCALE_Q, bool PROBS_BF16, bool LSE>
+int launch_fma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                int T_len, int H, int KV, int dh, int dv, float scale, int causal,
                int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
@@ -903,36 +919,36 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
     const size_t max_smem = sizeof(float) *
         ((size_t)(BQ + BK) * (MAXD + 1) + (size_t)BK * MAXD + (size_t)BQ * (BK + 1));
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<SCALE_Q, PROBS_BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<SCALE_Q, PROBS_BF16, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)max_smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid((T_len + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<SCALE_Q, PROBS_BF16><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<SCALE_Q, PROBS_BF16, LSE><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), T_len, H, KV, dh, dv, scale, causal, window);
+      static_cast<float*>(o), T_len, H, KV, dh, dv, scale, causal, window, lse);
   return (int)cudaGetLastError();
 }
 
-template <bool SCALE_Q, bool PROBS_BF16>
-int launch(const void* q, const void* k, const void* v, void* o, void* counter, int B,
-           int T_len, int H, int KV, int dh, int dv, float scale, int causal, int window,
-           int is_bf16, cudaStream_t st) {
+template <bool SCALE_Q, bool PROBS_BF16, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, void* counter,
+           int B, int T_len, int H, int KV, int dh, int dv, float scale, int causal,
+           int window, int is_bf16, cudaStream_t st) {
   if (!is_bf16)
-    return launch_fma<SCALE_Q, PROBS_BF16>(q, k, v, o, B, T_len, H, KV, dh, dv, scale,
-                                           causal, window, st);
+    return launch_fma<SCALE_Q, PROBS_BF16, LSE>(q, k, v, o, lse, B, T_len, H, KV, dh, dv,
+                                                scale, causal, window, st);
   if (dh != dv) return (int)cudaErrorInvalidValue;
   int* ctr = static_cast<int*>(counter);
   switch (dh) {
     case 16:
     case 32:
     case 64:
-      return launch_wgmma<64, SCALE_Q, PROBS_BF16>(q, k, v, o, ctr, B, T_len, H, KV, dh,
-                                                   scale, causal, window, st);
+      return launch_wgmma<64, SCALE_Q, PROBS_BF16, LSE>(q, k, v, o, lse, ctr, B, T_len, H,
+                                                        KV, dh, scale, causal, window, st);
     case 128:
-      return launch_wgmma<128, SCALE_Q, PROBS_BF16>(q, k, v, o, ctr, B, T_len, H, KV, dh,
-                                                    scale, causal, window, st);
+      return launch_wgmma<128, SCALE_Q, PROBS_BF16, LSE>(q, k, v, o, lse, ctr, B, T_len, H,
+                                                         KV, dh, scale, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -941,6 +957,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* counter, 
 
 // is_bf16: 1 for bfloat16 tensors, 0 for float32. window <= 0 means none.
 // scale_in_q, probs_bf16: the reference's attention flags, 0 or 1.
+// lse: (B, H, T) f32 to receive each row's log-sum-exp, or null; only
+// without the flags.
 // counter: one int on the card, zero, that the bf16 kernel uses to hand out
 // work (unused for f32). Requires B, T_len >= 1 and H % KV == 0; f32:
 // 1 <= dh, dv <= 128; bf16: dh == dv in {16, 32, 64, 128}, 16-byte aligned
@@ -950,13 +968,15 @@ int launch(const void* q, const void* k, const void* v, void* o, void* counter, 
 // if the driver refuses a tensor map, 20000 if it has no
 // cuTensorMapEncodeTiled.
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k, const void* v,
-                                     void* o, void* counter, int B, int T_len,
+                                     void* o, float* lse, void* counter, int B, int T_len,
                                      int H, int KV, int dh, int dv, float scale,
                                      int causal, int window, int scale_in_q,
                                      int probs_bf16, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* fn = scale_in_q ? (probs_bf16 ? &launch<true, true> : &launch<true, false>)
-                        : (probs_bf16 ? &launch<false, true> : &launch<false, false>);
-  return fn(q, k, v, o, counter, B, T_len, H, KV, dh, dv, scale, causal, window, is_bf16,
-            st);
+  if (lse != nullptr && (scale_in_q || probs_bf16)) return (int)cudaErrorInvalidValue;
+  auto* fn = lse != nullptr ? &launch<false, false, true>
+           : scale_in_q ? (probs_bf16 ? &launch<true, true, false> : &launch<true, false, false>)
+                        : (probs_bf16 ? &launch<false, true, false> : &launch<false, false, false>);
+  return fn(q, k, v, o, lse, counter, B, T_len, H, KV, dh, dv, scale, causal, window,
+            is_bf16, st);
 }

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
   dequant     the fetch path's decode (block dequant, memory-bound)
-  flash_attn  causal GQA attention for the prefill path (forward)
+  flash_attn  causal GQA attention for the prefill and training paths
+              (forward, and its row log-sum-exp for the backward)
+  flash_attn_bwd  its backward (dq, dk, dv) for training; no TPU twin
   ssm_scan    the Mamba-1 selective scan for the ssm prefill path
 
 Each kernel is a CUDA C++ source in ``repro_torch/csrc`` with a plain C

@@ -14,6 +14,14 @@ bf16 runs on Hopper's wgmma with q, k, v staged by TMA, whose tensor maps
 need 16-byte aligned base addresses and strides that are multiples of 16
 bytes; the wrapper checks both. ``scale_in_q`` and ``probs_bf16`` are the
 reference's attention flags, with ``kernels.ref.attention_ref``'s arithmetic.
+``return_lse`` also returns each row's log-sum-exp (B, H, T) f32, which the
+backward kernel (``kernels.flash_attn_bwd``) recomputes P from; it is
+written only without the flags, and only then is the kernel instance that
+stores it launched.
+
+The kernel computes no gradient: under autograd, inputs that require one are
+refused here, and ``kernels.ops.attention`` (an autograd Function with the
+backward kernel) is the way to differentiate attention.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ _ERR_ENCODE, _ERR_NO_ENCODE = 10000, 20000     # the C entry point's own codes
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn_fwd")
     fn = lib.flash_attn_fwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -43,8 +51,14 @@ def _lib() -> ctypes.CDLL:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None, scale_in_q: bool = False,
-                    probs_bf16: bool = False) -> torch.Tensor:
-    """q: (B, T, H, dh); k, v: (B, T, KV, dh/dv), H % KV == 0 -> (B, T, H, dv)."""
+                    probs_bf16: bool = False, return_lse: bool = False):
+    """q: (B, T, H, dh); k, v: (B, T, KV, dh/dv), H % KV == 0 -> (B, T, H, dv),
+    and with ``return_lse`` also lse (B, H, T) f32."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise ValueError("flash_attention computes no gradient: differentiate "
+                         "through kernels.ops.attention")
+    if return_lse and (scale_in_q or probs_bf16):
+        raise ValueError("the LSE is written only without the attention flags")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel needs q, k, v on one CUDA "
                          f"device (got {q.device}, {k.device}, {v.device})")
@@ -78,11 +92,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "strides that are multiples of 16 bytes (TMA tensor maps)")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty((b, t, h, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out                       # nothing to launch
+        return (out, lse) if return_lse else out     # nothing to launch
     counter = torch.zeros((1,), dtype=torch.int32, device=q.device)  # work items
     err = _lib().flash_attn_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), counter.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, counter.data_ptr(),
         b, t, h, kv, dh, dv, scale, int(causal), window or 0, int(scale_in_q),
         int(probs_bf16), _IS_BF16[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -94,7 +111,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"{err - _ERR_ENCODE})")
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

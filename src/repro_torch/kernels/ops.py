@@ -7,6 +7,14 @@ Counterpart of ``repro.kernels.ops``. ``impl``:
   * ``"ref"``: the plain version on any device (what the kernels are held to).
 There is no fallback: a CUDA tensor goes to the kernel, which launches or
 raises.
+
+``attention`` is differentiable: when autograd needs a gradient of q, k or v
+it runs ``FlashAttention``, whose forward also keeps the row log-sum-exp and
+whose backward is the backward kernel (or ``ref.attention_bwd_ref``, picked
+the same way). Otherwise (``torch.no_grad``, ``torch.inference_mode``, or no
+input that requires a gradient) it calls the forward kernel as serving
+does, with no LSE and nothing saved. The selective scan has no backward yet:
+``ssm_scan`` refuses inputs that need one rather than drop the gradient.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.dequant import dequant as dequant_kernel
 from repro_torch.kernels.flash_attn import flash_attention as flash_kernel
+from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd as flash_bwd_kernel
 from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
 
 
@@ -34,13 +43,48 @@ def dequant(q, scales, *, qblock: int = 256, out_dtype=torch.bfloat16,
     return dequant_kernel(q, scales, qblock=qblock, out_dtype=out_dtype)
 
 
+def _needs_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: the forward kernel (writing the LSE) and
+    the backward kernel on a card, ``attention_ref`` and
+    ``attention_bwd_ref`` on the CPU (``impl`` as in ``attention``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, impl):
+        flags = dict(causal=causal, window=window, scale=scale)
+        if impl == "ref":
+            o, lse = ref.attention_ref(q, k, v, return_lse=True, **flags)
+        else:
+            o, lse = flash_kernel(q, k, v, return_lse=True, **flags)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.flags, ctx.impl = flags, impl
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = ref.attention_bwd_ref if ctx.impl == "ref" else flash_bwd_kernel
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), **ctx.flags)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               scale: Optional[float] = None, scale_in_q: bool = False,
               probs_bf16: bool = False,
               impl: Optional[str] = None) -> torch.Tensor:
+    impl = _pick(q, impl)
+    if _needs_grad(q, k, v):
+        if scale_in_q or probs_bf16:
+            raise NotImplementedError(
+                "the attention flags scale_in_q and probs_bf16 have no backward "
+                "yet (ROADMAP Queue 1 item 3)")
+        return FlashAttention.apply(q, k, v, causal, window, scale, impl)
     flags = dict(causal=causal, window=window, scale=scale,
                  scale_in_q=scale_in_q, probs_bf16=probs_bf16)
-    if _pick(q, impl) == "ref":
+    if impl == "ref":
         return ref.attention_ref(q, k, v, **flags)
     return flash_kernel(q, k, v, **flags)
 
@@ -48,6 +92,10 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 def ssm_scan(u, dt, b_in, c_in, a_log, d_skip, *,
              impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Selective scan from a zero state -> (y (B, T, D) f32, h_final (B, D, S) f32)."""
+    if _needs_grad(u, dt, b_in, c_in, a_log, d_skip):
+        raise NotImplementedError(
+            "K3 (the selective scan) has no backward yet (ROADMAP Queue 1 item "
+            "3); call it under torch.no_grad or on inputs that need no gradient")
     if _pick(u, impl) == "ref":
         return ref.ssm_scan_ref(u, dt, b_in, c_in, a_log, d_skip)
     return ssm_kernel(u, dt, b_in, c_in, a_log, d_skip)

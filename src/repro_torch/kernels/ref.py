@@ -57,10 +57,24 @@ def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b_in: torch.Tensor,
     return y + uf * d_skip.float(), h
 
 
+def _attention_mask(tq: int, tk: int, causal: bool, window: Optional[int],
+                    device) -> torch.Tensor:
+    """(tq, tk) bool: key k is live for query q. When Tq != Tk the query
+    block is aligned to the end of the keys."""
+    qpos = torch.arange(tq, device=device)[:, None] + (tk - tq)
+    kpos = torch.arange(tk, device=device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   scale: Optional[float] = None, scale_in_q: bool = False,
-                  probs_bf16: bool = False) -> torch.Tensor:
+                  probs_bf16: bool = False, return_lse: bool = False):
     """Naive softmax attention. q: (B,Tq,H,dh); k,v: (B,Tk,KV,*).
 
     Query head h reads kv head h // (H/KV). When Tq != Tk the query block is
@@ -79,7 +93,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention_lax`` takes a running max over key blocks of 512, so
     the two agree exactly for Tk <= 512 (one key block) and within bf16
     rounding of the argument beyond.
+
+    ``return_lse`` also returns each row's log-sum-exp of its scaled, masked
+    scores, ``lse = m + log l`` (B, H, Tq) f32, what the backward
+    (``attention_bwd_ref``) recomputes P from; it is taken without the two
+    flags only (they have no backward).
     """
+    if return_lse and (scale_in_q or probs_bf16):
+        raise ValueError("the LSE is returned only without the attention flags")
     b, tq, h, dh = q.shape
     tk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -90,20 +111,59 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32)
     if not scale_in_q:
         s = s * scale
-    qpos = torch.arange(tq, device=q.device)[:, None]
-    kpos = torch.arange(tk, device=q.device)[None, :]
-    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos + (tk - tq)     # align ends if tq != tk
-    if window is not None:
-        mask &= (qpos + (tk - tq) - kpos) < window
+    mask = _attention_mask(tq, tk, causal, window, q.device)
     s = torch.where(mask, s, torch.tensor(-1e30, dtype=s.dtype, device=s.device))
     if not probs_bf16:
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
-        return out.reshape(b, tq, h, v.shape[-1])
+        out = out.reshape(b, tq, h, v.shape[-1])
+        if return_lse:
+            return out, torch.logsumexp(s, dim=-1).reshape(b, h, tq)
+        return out
     p = torch.exp((s - s.amax(-1, keepdim=True)).to(torch.bfloat16).to(torch.float32))
     l = p.sum(-1)                                        # (b, kv, g, tq)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     out = out.to(torch.float32) / l.permute(0, 3, 1, 2)[..., None]
     return out.to(v.dtype).reshape(b, tq, h, v.shape[-1])
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      scale: Optional[float] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``attention_ref`` (no flags): the flash backward.
+
+    q: (B,T,H,dh); k, v: (B,T,KV,*); o, do: (B,T,H,dv) the forward's output
+    and its cotangent; lse: (B,H,T) f32 from ``attention_ref(...,
+    return_lse=True)``. Returns (dq, dk, dv) in the inputs' dtypes, from
+    f32 arithmetic on the widened inputs::
+
+        D  = rowsum(dO * O)           P  = exp(S * scale - lse)  (masked: 0)
+        dV = P^T dO                   dP = dO V^T
+        dS = P * (dP - D)             dQ = dS K * scale,  dK = dS^T Q * scale
+
+    dK and dV sum over the H/KV query heads of each kv head. P is rounded to
+    v's dtype before P^T dO, as the forward rounds it before P V, and dS to
+    q's dtype before its two products, as the reference's autodiff rounds
+    the scores' cotangent to the einsum's dtype; in f32 neither rounds.
+    """
+    b, t, h, dh = q.shape
+    tk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qg = q.float().reshape(b, t, kv, g, dh)
+    dog = do.float().reshape(b, t, kv, g, -1)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    mask = _attention_mask(t, tk, causal, window, q.device)
+    p = torch.exp(s - lse.float().reshape(b, kv, g, t)[..., None])
+    p = torch.where(mask, p, torch.zeros((), device=p.device))
+    dsum = (dog * o.float().reshape(b, t, kv, g, -1)).sum(-1)     # (b,t,kv,g)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(v.dtype).float(), dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    ds = (p * (dp - dsum.permute(0, 2, 3, 1)[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    return (dq.reshape(b, t, h, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -11,7 +11,8 @@ b_in, c_in (B, T, S) in one dtype, bf16 or f32; a_log (D, S) and d_skip (D,)
 in one dtype, bf16 or f32; 1 <= S <= 16; zero initial state. Returns y
 (B, T, D) f32 and h_final (B, D, S) f32. Any T and D work: the kernel masks
 the ragged tails itself. Every tensor is contiguous and 16-byte aligned, the
-contract the port's kernels share.
+contract the port's kernels share. The kernel has no backward: under
+autograd, inputs that need a gradient are refused, not silently cut off.
 """
 from __future__ import annotations
 
@@ -42,6 +43,9 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b_in: torch.Tensor,
     Returns (y (B, T, D) f32, h_final (B, D, S) f32).
     """
     args = (u, dt, b_in, c_in, a_log, d_skip)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        raise NotImplementedError(
+            "K3 (the selective scan) has no backward yet (ROADMAP Queue 1 item 3)")
     if not (u.is_cuda and all(x.device == u.device for x in args)):
         raise ValueError("ssm_scan kernel needs every input on one CUDA device "
                          f"(got {[str(x.device) for x in args]})")

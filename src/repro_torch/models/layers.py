@@ -13,6 +13,10 @@ flash kernel on a card, the plain version on the CPU. Decode attention (one
 query position against the cache) is plain PyTorch and reads neither flag,
 as in the reference.
 
+Parameters are trainable (``requires_grad``); serving runs under
+``torch.inference_mode`` and records no graph. ``chunked_cross_entropy`` is
+the training loss.
+
 A layer's K/V cache is ``{"k", "v"}``, each (B, size, KV, dh) in the
 activation dtype, where ``size`` is ``max_len`` for global layers and
 ``min(max_len, window)`` for sliding-window layers (a ring: position p sits
@@ -27,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -35,8 +40,7 @@ Cache = Dict[str, torch.Tensor]
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
 @torch.no_grad()
@@ -264,3 +268,41 @@ class MLP(nn.Module):
         else:
             h = torch.relu(h) ** 2
         return h @ self.wo.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _chunk_ce(h: torch.Tensor, et: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    logits = (h @ et).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(1, labels[:, None])[:, 0]
+    return ((logz - gold) * mask).sum()
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, embed: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 2048,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE without holding the full (tokens, vocab) logits.
+
+    hidden: (B, T, d); embed: (V, d); labels: (B, T) integers; mask (B, T) or
+    None. The logits of each ``chunk`` tokens are taken in hidden's dtype
+    against ``embed`` cast to it, widened to f32, and their (chunk, V) block
+    is recomputed in backward instead of kept (``torch.utils.checkpoint``,
+    the reference's ``jax.checkpoint`` of its scan step). The last chunk may
+    be shorter; the reference pads it with zero-mask rows, which add nothing.
+    """
+    b, t, d = hidden.shape
+    n = b * t
+    hf = hidden.reshape(n, d)
+    lf = labels.reshape(n).long()
+    mf = (torch.ones((n,), dtype=torch.float32, device=hidden.device)
+          if mask is None else mask.reshape(n).to(torch.float32))
+    et = embed.to(hidden.dtype).T                # (d, V)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, n, chunk):
+        total = total + checkpoint(_chunk_ce, hf[i:i + chunk], et, lf[i:i + chunk],
+                                   mf[i:i + chunk], use_reentrant=False)
+    return total / torch.clamp(mf.sum(), min=1.0)

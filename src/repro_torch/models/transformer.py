@@ -14,6 +14,11 @@ sliding-window layers, ``max_len`` in global ones). A mamba layer's is
 ``{"h": (B, di, S) f32, "conv": (B, K-1, di)}``, whatever ``max_len``. A
 hybrid layer's holds all four. ``decode_step`` writes the new position into
 the caches in place, where the reference returns updated copies.
+
+``loss`` is the training entry point (the ``dense`` family; the ssm and
+hybrid ones wait for a backward of the selective scan). The inference entry
+points run under ``torch.no_grad``: they record no graph, whatever the
+caller's grad mode.
 """
 from __future__ import annotations
 
@@ -21,11 +26,13 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.hybrid import HybridBlock
-from repro_torch.models.layers import MLP, Attention, Cache, Norm, rope_table
+from repro_torch.models.layers import (MLP, Attention, Cache, Norm,
+                                      chunked_cross_entropy, rope_table)
 from repro_torch.models.mamba import MambaMixer
 
 
@@ -118,11 +125,9 @@ class Model(nn.Module):
         pdt = getattr(torch, cfg.param_dtype)
         dev = self.device
         self.embed = nn.Parameter(
-            torch.empty((cfg.vocab_size, cfg.d_model), device=dev, dtype=pdt),
-            requires_grad=False)
+            torch.empty((cfg.vocab_size, cfg.d_model), device=dev, dtype=pdt))
         self.out_embed = None if cfg.tie_embeddings else nn.Parameter(
-            torch.empty((cfg.vocab_size, cfg.d_model), device=dev, dtype=pdt),
-            requires_grad=False)
+            torch.empty((cfg.vocab_size, cfg.d_model), device=dev, dtype=pdt))
         self.final_norm = Norm(cfg, cfg.d_model, device=dev, dtype=pdt)
         self.layers = nn.ModuleList(_block(cfg, i, device=dev, dtype=pdt)
                                     for i in range(cfg.num_layers))
@@ -144,9 +149,11 @@ class Model(nn.Module):
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed[tokens.long()].to(self.dtype)
 
+    def _unembed(self) -> torch.Tensor:
+        return self.embed if self.out_embed is None else self.out_embed
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        emb = self.embed if self.out_embed is None else self.out_embed
-        return x @ emb.to(x.dtype).T
+        return x @ self._unembed().to(x.dtype).T
 
     def _rope(self, b: int, start: int, t: int):
         if self.cfg.attention_free:
@@ -155,6 +162,34 @@ class Model(nn.Module):
         return rope_table(self.cfg, pos[None].expand(b, t))
 
     # -- entry points ------------------------------------------------------------
+    def loss(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+        """Next-token LM loss of (B, T) tokens -> (loss, {"ce", "aux"}).
+
+        Each layer runs under ``torch.utils.checkpoint`` when ``cfg.remat``
+        (its activations are recomputed in backward, the reference's
+        ``jax.checkpoint`` with ``nothing_saveable``); the CE of
+        ``hidden[:, :-1]`` against ``tokens[:, 1:]`` takes ``cfg.loss_chunk``
+        tokens per chunk. ``aux`` is 0: the dense family has no router.
+        """
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"training the {self.cfg.family!r} family needs a backward of the "
+                "selective scan (K3), which is not written yet (ROADMAP Queue 1 "
+                "item 3); the 'dense' family trains")
+        x = self._embed(tokens)
+        cos, sin = self._rope(tokens.shape[0], 0, tokens.shape[1])
+        for layer in self.layers:
+            if self.cfg.remat:
+                x = checkpoint(layer, x, cos, sin, use_reentrant=False)
+            else:
+                x = layer(x, cos, sin)
+        x = self.final_norm(x)
+        ce = chunked_cross_entropy(x[:, :-1], self._unembed(), tokens[:, 1:],
+                                   chunk=self.cfg.loss_chunk)
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    @torch.no_grad()
     def logits_full(self, tokens: torch.Tensor) -> torch.Tensor:
         """Teacher-forced logits (B, T, V) for every position."""
         x = self._embed(tokens)
@@ -163,6 +198,7 @@ class Model(nn.Module):
             x = layer(x, cos, sin)
         return self._logits(self.final_norm(x))
 
+    @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int
                 ) -> Tuple[torch.Tensor, List[Cache]]:
         """Returns (last-position logits (B, V), caches)."""
@@ -175,6 +211,7 @@ class Model(nn.Module):
         x = self.final_norm(x[:, -1:])
         return self._logits(x)[:, 0], caches
 
+    @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, caches: List[Cache],
                     cache_len: int) -> Tuple[torch.Tensor, List[Cache]]:
         """tokens (B, 1); ``cache_len`` = positions already cached. Writes the

@@ -17,7 +17,14 @@ row's global max, so f32 outputs agree within the bf16 tolerance. The selective 
 dtypes: bf16 inputs are widened to f32 exactly on both sides before any
 arithmetic, so only f32 rounding differs (2^x by ex2.approx, within ~2e-7
 relative, with log2(e) folded into A, against exp; sums in another order). The models on the card in f32 match
-their CPU runs within 1e-4 and greedy tokens match.
+their CPU runs within 1e-4 and greedy tokens match. The attention backward
+kernel against ``attention_bwd_ref``: f32 within 1e-5 (FMAs summed in
+another order, exp by expf), bf16 within 2e-2 (P and dS rounded to bf16 on
+both sides before the tensor-core products, but the plain version takes S
+from bf16-rounded scores and the kernel from f32 accumulators, and 2^x by
+exp2f against exp); its LSE output within the forward's tolerance. A
+smoke model's loss and every gradient on the card in f32 match the CPU's
+within 1e-4.
 """
 import math
 
@@ -30,6 +37,7 @@ from repro_torch.core import DeviceStore, DeviceStoreConfig, decode_records
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dequant import dequant as dequant_kernel
 from repro_torch.kernels.flash_attn import flash_attention as flash_kernel
+from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd as flash_bwd_kernel
 from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
 from repro_torch.models import build_model
 from repro_torch.serve.serve_step import generate
@@ -311,3 +319,124 @@ def test_model_on_card_matches_cpu(cuda, arch):
     torch.testing.assert_close(lc.cpu(), lp, rtol=1e-4, atol=1e-4)
     assert torch.equal(generate(card, toks, steps=6).cpu(),
                        generate(cpu, toks, steps=6))
+
+
+BWD_SHAPES = [
+    # b, t, h, kv, dh, window, causal
+    (1, 64, 4, 4, 16, None, True),      # GQA group 1
+    (2, 80, 4, 2, 32, 24, True),        # group 2, ragged T, window
+    (1, 300, 10, 2, 64, 100, True),     # group 5, window
+    (1, 200, 32, 2, 128, None, True),   # chatglm3-6b's heads: group 16, ragged T
+    (1, 1500, 25, 5, 64, 1024, True),   # hymba-1.5b: group 5, window 1024
+    (2, 129, 16, 1, 128, 50, True),     # group 16, a 1-row last tile
+    (1, 100, 4, 2, 32, None, False),    # not causal
+    (1, 100, 4, 2, 32, 30, False),      # not causal, window
+]
+
+
+@pytest.mark.parametrize("b,t,h,kv,dh,win,causal", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_vs_plain(cuda, dtype, b, t, h, kv, dh, win, causal):
+    gen = torch.Generator(cuda).manual_seed(3)
+    q, k, v, do = (torch.randn((b, t, n, dh), generator=gen, device=cuda).to(dtype)
+                   for n in (h, kv, kv, h))
+    o, lse = flash_kernel(q, k, v, causal=causal, window=win, return_lse=True)
+    o_ref, lse_ref = ref.attention_ref(q, k, v, causal=causal, window=win,
+                                       return_lse=True)
+    tol = F32 if dtype == torch.float32 else BF16
+    torch.testing.assert_close(lse, lse_ref, **tol)
+    torch.testing.assert_close(o.float(), o_ref.float(), **tol)
+    before = flash_bwd_kernel.launches
+    got = flash_bwd_kernel(q, k, v, o, lse, do, causal=causal, window=win)
+    assert flash_bwd_kernel.launches == before + 1
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=win)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+    again = flash_bwd_kernel(q, k, v, o, lse, do, causal=causal, window=win)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))      # no atomics
+
+
+def test_flash_attention_bwd_kernel_f32_dv_ne_dh(cuda):
+    gen = torch.Generator(cuda).manual_seed(4)
+    q, k = (torch.randn((2, 90, n, 48), generator=gen, device=cuda) for n in (8, 2))
+    v = torch.randn((2, 90, 2, 24), generator=gen, device=cuda)
+    o, lse = flash_kernel(q, k, v, return_lse=True)
+    do = torch.randn_like(o)
+    got = flash_bwd_kernel(q, k, v, o, lse, do)
+    for g, w in zip(got, ref.attention_bwd_ref(q, k, v, o, lse, do)):
+        torch.testing.assert_close(g, w, **F32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_autograd_on_card_matches_cpu(cuda, dtype):
+    gen = torch.Generator().manual_seed(5)
+    x = [torch.randn((2, 150, n, 64), generator=gen).to(dtype) for n in (8, 2, 2, 8)]
+    grads = {}
+    before = (flash_kernel.launches, flash_bwd_kernel.launches)
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (t.to(dev).requires_grad_() for t in x[:3])
+        ops.attention(q, k, v, window=40).backward(x[3].to(dev))
+        grads[dev.type] = [t.grad.cpu().float() for t in (q, k, v)]
+    assert (flash_kernel.launches, flash_bwd_kernel.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g, w, **(F32 if dtype == torch.float32 else BF16))
+
+
+def test_flash_attention_bwd_kernel_refuses_bad_input(cuda):
+    x = torch.zeros((1, 8, 2, 16), device=cuda)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    before = flash_bwd_kernel.launches
+    with pytest.raises(ValueError, match="lse"):
+        flash_bwd_kernel(x, x, x, x, lse[:, :1], x)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_bwd_kernel(x, x, x, x, lse.half(), x)
+    with pytest.raises(ValueError, match="bf16 head dims"):
+        y = torch.zeros((1, 8, 2, 48), device=cuda, dtype=torch.bfloat16)
+        flash_bwd_kernel(y, y, y, y, lse, y)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_bwd_kernel(x, x, x, x, lse, x.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="no gradient"):
+        flash_kernel(x.clone().requires_grad_(), x, x)
+    with pytest.raises(ValueError, match="attention flags"):
+        flash_kernel(x, x, x, probs_bf16=True, return_lse=True)
+    assert flash_bwd_kernel.launches == before
+
+
+def test_serving_saves_nothing_and_launches_no_backward(cuda):
+    cfg = get_smoke("chatglm3-6b").scaled(remat=False)
+    model = build_model(cfg, device=cuda).init(torch.Generator(cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda, dtype=torch.int32)
+    before = (flash_kernel.launches, flash_bwd_kernel.launches)
+    out = generate(model, toks, steps=4)
+    assert out.grad_fn is None
+    assert flash_kernel.launches == before[0] + cfg.num_layers
+    assert flash_bwd_kernel.launches == before[1]
+    q, k = (torch.randn((1, 64, n, 32), device=cuda, dtype=torch.bfloat16,
+                        requires_grad=True) for n in (4, 2))
+    with torch.inference_mode():
+        assert ops.attention(q, k, k).grad_fn is None
+
+
+def test_model_loss_on_card_matches_cpu(cuda):
+    cfg = get_smoke("chatglm3-6b").scaled(dtype="float32", loss_chunk=64)
+    assert cfg.remat
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32))
+    before = (flash_kernel.launches, flash_bwd_kernel.launches)
+    lc, _ = card.loss(toks.to(cuda))
+    lc.backward()
+    # the forward, its recompute under remat, and one backward per layer
+    assert (flash_kernel.launches - before[0], flash_bwd_kernel.launches - before[1]) \
+        == (2 * cfg.num_layers, cfg.num_layers)
+    lp, _ = cpu.loss(toks)
+    lp.backward()
+    torch.testing.assert_close(lc.detach().cpu(), lp.detach(), rtol=1e-4, atol=1e-4)
+    want = dict(cpu.named_parameters())
+    for n, p in card.named_parameters():
+        torch.testing.assert_close(p.grad.cpu(), want[n].grad, rtol=1e-4, atol=1e-4,
+                                   msg=n)

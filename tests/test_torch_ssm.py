@@ -120,6 +120,7 @@ def mixer_pair():
 
 
 @pytest.mark.parametrize("t", [2, 17])
+@torch.no_grad()          # the mixer's parameters are trainable; K3 has no backward
 def test_mixer_forward_prefill_decode_vs_reference(rng, mixer_pair, t):
     """T = 2 < K - 1 left-pads the conv tail, as the reference does."""
     jcfg, params, mixer = mixer_pair

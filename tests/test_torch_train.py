@@ -1,0 +1,517 @@
+"""Training of the port against the JAX reference on the CPU: attention
+gradients, chunked CE, ``Model.loss`` and its gradients, AdamW and its
+schedules, the train step with microbatches, checkpoints and resume, the
+launcher, and the refusals of what has no backward yet.
+
+Inputs come from numpy with a seed and go through both packages; JAX runs
+on the CPU. Tolerances:
+  * f32 attention gradients within 1e-5: ``flash_attention_lax`` is
+    differentiated through its online softmax, the port takes the flash
+    backward's closed form (same math, f32 sums in another order);
+  * bf16 attention gradients within 2e-2: the reference's cotangent of
+    ``pv`` is bf16 (``layers.py:186-190``: its autodiff rounds the
+    cotangents of P V and of the scores to bf16) where the plain backward
+    keeps dP in f32 and rounds P and dS once each;
+  * CE and ``Model.loss`` in f32: loss within 1e-5, gradients within 1e-4
+    (a few layers of f32 products summed in another order); CE with bf16
+    logits within 1e-3 (see its test);
+  * ``Model.loss`` in the default bf16 config: loss within 1e-2 and every
+    gradient within 5 % of its tensor's largest magnitude (bf16 activations
+    rounded at other places; the gradients of bf16 products differ by a few
+    bf16 ulps);
+  * AdamW and its schedules within 1e-6 (f32 arithmetic in the reference's
+    order; the port takes the schedule and bias corrections in double);
+  * the train step within 1e-5 (losses and parameters after three steps).
+    Adam divides each gradient by its own RMS plus eps, so a gradient that
+    is rounding noise moves its parameter by up to lr either way, on each
+    side differently: the key bias's gradient is exactly zero in the dims
+    RoPE leaves alone (a constant added to every key of a row moves no
+    softmax) and comes out as ~1e-8 of noise. The test takes eps 1e-4,
+    above that noise, so that each update follows its gradient.
+"""
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke as jax_get_smoke
+from repro.data.sampler import GlobalUniformSampler as JaxSampler
+from repro.data.synthetic import token_dataset as jax_token_dataset
+from repro.models import build_model as jax_build_model
+from repro.models.layers import chunked_cross_entropy as jax_ce
+from repro.models.layers import flash_attention_lax
+from repro.train import optimizer as jax_opt
+from repro.train import train_step as jax_ts
+from repro_torch.configs import get_smoke
+from repro_torch.data import GlobalUniformSampler, token_dataset
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd
+from repro_torch.launch import train as launch_train
+from repro_torch.models import build_model
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.layers import chunked_cross_entropy
+from repro_torch.models.mamba import MambaMixer
+from repro_torch.train import optimizer as opt
+from repro_torch.train.checkpoint import (CheckpointManager, list_checkpoints,
+                                          restore_checkpoint, save_checkpoint)
+from repro_torch.train.train_step import TrainState, make_train_step
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+GRAD = dict(rtol=1e-4, atol=1e-4)
+DENSE = ["chatglm3-6b", "qwen2-72b", "qwen1.5-32b", "nemotron-4-15b"]
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(_np(a), _np(b), **tol)
+
+
+# ---------------------------------------------------------------------------
+# attention gradients
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("win", [None, 24], ids=["causal", "window24"])
+def test_attention_grads_vs_jax_grad(rng, win, group, dtype):
+    b, t, kv, dh = 2, 80, 2, 32                 # T a multiple of no block size
+    h = kv * group
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, t, h, dh), (b, t, kv, dh), (b, t, kv, dh)))
+    do = rng.standard_normal((b, t, h, dh)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+
+    def f(q, k, v):
+        o = flash_attention_lax(q, k, v, causal=True, window=win, block_q=32,
+                                block_k=32)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(do))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(x, jdt) for x in (q, k, v)))
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_() for x in (q, k, v))
+    tdo = torch.from_numpy(do).to(tdt)
+    o = ops.attention(tq, tk, tv, causal=True, window=win)
+    o.backward(tdo)
+    tol = F32 if dtype == "float32" else BF16
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        assert got.dtype == tdt
+        _close(got, w, tol)
+    with torch.no_grad():                     # the plain backward called directly
+        o2, lse = ref.attention_ref(tq, tk, tv, window=win, return_lse=True)
+        direct = ref.attention_bwd_ref(tq, tk, tv, o2, lse, tdo, window=win)
+    for got, w in zip(direct, want):
+        _close(got, w, tol)
+
+
+@pytest.mark.parametrize("win", [None, 5])
+def test_attention_lse_is_the_rows_logsumexp(rng, win):
+    b, t, h, kv, dh = 1, 20, 4, 2, 8
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, t, h, dh), (b, t, kv, dh), (b, t, kv, dh)))
+    out, lse = ref.attention_ref(*map(torch.from_numpy, (q, k, v)), window=win,
+                                 return_lse=True)
+    assert tuple(lse.shape) == (b, h, t) and lse.dtype == torch.float32
+    kr = np.repeat(k, h // kv, axis=2).astype(np.float64)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kr) / np.sqrt(dh)
+    qi, ki = np.arange(t)[:, None], np.arange(t)[None, :]
+    live = (ki <= qi) & ((qi - ki) < win if win else True)
+    s = np.where(live, s, -np.inf)
+    want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    np.testing.assert_allclose(lse.numpy(), want, **F32)
+    _close(out, ref.attention_ref(*map(torch.from_numpy, (q, k, v)), window=win), F32)
+
+
+@pytest.mark.parametrize("flag", ["scale_in_q", "probs_bf16"])
+def test_attention_flags_have_no_backward(flag):
+    x = torch.zeros((1, 8, 2, 16), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.attention(x, x, x, **{flag: True})
+    with torch.no_grad():                     # serving the flag still works
+        assert ops.attention(x, x, x, **{flag: True}).grad_fn is None
+
+
+def test_attention_without_grad_records_nothing(rng):
+    x = torch.from_numpy(rng.standard_normal((1, 8, 2, 16)).astype(np.float32))
+    x.requires_grad_()
+    for ctx in (torch.no_grad(), torch.inference_mode()):
+        with ctx:
+            assert ops.attention(x, x, x).grad_fn is None
+    assert ops.attention(x.detach(), x.detach(), x.detach()).grad_fn is None
+    assert type(ops.attention(x, x, x).grad_fn).__name__ == "FlashAttentionBackward"
+
+
+def test_backward_kernel_refuses_cpu_tensors():
+    x = torch.zeros((1, 8, 2, 16))
+    lse = torch.zeros((1, 2, 8))
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(x, x, x, x, lse, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.attention(x.requires_grad_(), x, x, impl="kernel")
+    assert flash_attention_bwd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# chunked cross entropy
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "mask"])
+@pytest.mark.parametrize("chunk", [7, 8, 64])        # ragged, even, one chunk
+def test_chunked_cross_entropy_vs_reference(rng, chunk, masked):
+    b, t, d, vocab = 2, 13, 16, 50
+    hid = rng.standard_normal((b, t, d)).astype(np.float32)
+    emb = (rng.standard_normal((vocab, d)) * 0.3).astype(np.float32)
+    lab = rng.integers(0, vocab, (b, t)).astype(np.int32)
+    mask = (rng.random((b, t)) < 0.7).astype(np.float32) if masked else None
+
+    def f(h, e):
+        return jax_ce(h, e, jnp.asarray(lab), chunk=chunk,
+                      mask=None if mask is None else jnp.asarray(mask))
+
+    jval, (jdh, jde) = jax.value_and_grad(f, argnums=(0, 1))(jnp.asarray(hid),
+                                                             jnp.asarray(emb))
+    th, te = (torch.from_numpy(x).requires_grad_() for x in (hid, emb))
+    val = chunked_cross_entropy(th, te, torch.from_numpy(lab), chunk=chunk,
+                                mask=None if mask is None else torch.from_numpy(mask))
+    val.backward()
+    _close(val, jval, F32)
+    _close(th.grad, jdh, F32)
+    _close(te.grad, jde, F32)
+
+
+def test_chunked_cross_entropy_bf16_vs_reference(rng):
+    # The reference's source rounds the (chunk, V) logits to bf16 and widens
+    # them; XLA on the CPU folds that round trip away (its product has an f32
+    # output: the port's loss from f32 logits equals it within 1e-6). The
+    # port rounds as the source says, so the two differ by the mean effect of
+    # one bf16 rounding of each logit (3.7e-4 here): within 1e-3.
+    hid = rng.standard_normal((2, 9, 32)).astype(np.float32)
+    emb = (rng.standard_normal((40, 32)) * 0.2).astype(np.float32)
+    lab = rng.integers(0, 40, (2, 9)).astype(np.int32)
+    want = jax_ce(jnp.asarray(hid, jnp.bfloat16), jnp.asarray(emb), jnp.asarray(lab),
+                  chunk=5)
+    got = chunked_cross_entropy(torch.from_numpy(hid).to(torch.bfloat16),
+                                torch.from_numpy(emb), torch.from_numpy(lab), chunk=5)
+    _close(got, want, dict(rtol=1e-3, atol=1e-3))
+
+
+# ---------------------------------------------------------------------------
+# Model.loss
+# ---------------------------------------------------------------------------
+
+def _pair(arch, **over):
+    jcfg = jax_get_smoke(arch).scaled(**over)
+    jmodel = jax_build_model(jcfg)
+    params = jmodel.init(jax.random.key(0))
+    cfg = get_smoke(arch).scaled(**over)
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), cfg))
+    return jmodel, params, model, cfg
+
+
+def _loss_and_grads(jmodel, params, model, cfg, toks):
+    (jl, jm), jg = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(
+        params, {"tokens": jnp.asarray(toks)})
+    loss, metrics = model.loss(torch.from_numpy(toks))
+    loss.backward()
+    want = params_from_jax(jax.tree.map(lambda g: np.asarray(g, np.float32), jg), cfg)
+    got = {n: p.grad for n, p in model.named_parameters()}
+    assert set(got) == set(want)
+    return (jl, jm), (loss, metrics), got, want
+
+
+@pytest.mark.parametrize("case", DENSE + ["chatglm3-6b/swa"])
+def test_model_loss_and_grads_vs_reference(case):
+    arch = case.split("/")[0]
+    over = dict(dtype="float32", loss_chunk=16)            # CE in 3 chunks, ragged
+    if case.endswith("/swa"):
+        over.update(window=8, global_layers=(0,))
+    jmodel, params, model, cfg = _pair(arch, **over)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    (jl, jm), (loss, metrics), got, want = _loss_and_grads(jmodel, params, model, cfg, toks)
+    _close(loss, jl, F32)
+    _close(metrics["ce"], jm["ce"], F32)
+    assert float(metrics["aux"]) == 0.0 == float(jm["aux"])
+    for name in want:
+        np.testing.assert_allclose(_np(got[name]), want[name].numpy(), err_msg=name, **GRAD)
+
+
+def test_model_loss_bf16_default_config():
+    jmodel, params, model, cfg = _pair("chatglm3-6b")       # bf16 activations
+    assert cfg.dtype == "bfloat16" and cfg.remat
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    (jl, _), (loss, _), got, want = _loss_and_grads(jmodel, params, model, cfg, toks)
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-2, atol=1e-2)
+    for name in want:
+        w = want[name].numpy()
+        err = np.abs(_np(got[name]) - w).max()
+        assert err <= 0.05 * np.abs(w).max() + 1e-6, (name, err)
+
+
+def test_model_loss_remat_changes_nothing():
+    cfg = get_smoke("chatglm3-6b").scaled(dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32))
+    grads = []
+    for remat in (True, False):
+        model = build_model(cfg.scaled(remat=remat), device="cpu").init(
+            torch.Generator().manual_seed(0))
+        loss, _ = model.loss(toks)
+        loss.backward()
+        grads.append((loss.detach(), {n: p.grad for n, p in model.named_parameters()}))
+    assert torch.equal(grads[0][0], grads[1][0])
+    for n in grads[0][1]:
+        assert torch.equal(grads[0][1][n], grads[1][1][n]), n
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_model_loss_refuses_ssm_and_hybrid(arch):
+    model = build_model(get_smoke(arch), device="cpu").init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.loss(torch.zeros((1, 4), dtype=torch.int32))
+
+
+def test_ssm_scan_refuses_inputs_that_need_a_gradient():
+    u, bc = torch.zeros((1, 8, 4)), torch.zeros((1, 8, 2))
+    a, d = torch.zeros((4, 2), requires_grad=True), torch.ones((4,))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssm_scan(u, u, bc, bc, a, d)
+    with torch.no_grad():
+        y, _ = ops.ssm_scan(u, u, bc, bc, a, d)
+    assert y.grad_fn is None
+    mixer = MambaMixer(get_smoke("falcon-mamba-7b"), device="cpu", dtype=torch.float32)
+    mixer.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.zeros((1, 4, get_smoke("falcon-mamba-7b").d_model))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        mixer(x)                              # trainable parameters, grad mode on
+
+
+# ---------------------------------------------------------------------------
+# AdamW and the schedules
+# ---------------------------------------------------------------------------
+
+SCHEDULES = ["cosine", "linear", "constant"]
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_lr_schedule_matches_reference(schedule):
+    cfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=3, total_steps=10, schedule=schedule)
+    jcfg = jax_opt.OptimizerConfig(lr=1e-3, warmup_steps=3, total_steps=10,
+                                   schedule=schedule)
+    for step in range(13):
+        np.testing.assert_allclose(
+            opt.lr_schedule(cfg, step),
+            float(jax_opt.lr_schedule(jcfg, jnp.asarray(step, jnp.int32))), rtol=1e-6)
+
+
+def _opt_trees(rng):
+    """One leaf of each rank, named as the port names them and laid out as
+    the reference's tree (per-layer leaves stacked on a layer axis)."""
+    d, v, h, dh = 6, 10, 2, 3
+    leaves = {"final_norm.scale": rng.standard_normal(d),
+              "embed": rng.standard_normal((v, d)),
+              "layers.0.norm1.scale": rng.standard_normal(d),
+              "layers.0.attn.wq": rng.standard_normal((d, h, dh))}
+    leaves = {n: a.astype(np.float32) for n, a in leaves.items()}
+
+    def jax_tree(x):
+        return {"final_norm": {"scale": jnp.asarray(x["final_norm.scale"])},
+                "embed": jnp.asarray(x["embed"]),
+                "segments": [{"norm1": {"scale": jnp.asarray(x["layers.0.norm1.scale"])[None]},
+                              "attn": {"wq": jnp.asarray(x["layers.0.attn.wq"])[None]}}]}
+
+    def from_jax(tree):
+        return {"final_norm.scale": tree["final_norm"]["scale"], "embed": tree["embed"],
+                "layers.0.norm1.scale": tree["segments"][0]["norm1"]["scale"][0],
+                "layers.0.attn.wq": tree["segments"][0]["attn"]["wq"][0]}
+
+    return leaves, jax_tree, from_jax
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_adamw_update_matches_reference(rng, schedule):
+    leaves, jax_tree, from_jax = _opt_trees(rng)
+    kw = dict(lr=1e-2, warmup_steps=2, total_steps=5, schedule=schedule,
+              weight_decay=0.1, grad_clip=1.0)
+    cfg, jcfg = opt.OptimizerConfig(**kw), jax_opt.OptimizerConfig(**kw)
+    params = {n: torch.from_numpy(a.copy()) for n, a in leaves.items()}
+    state = opt.adamw_init(params)
+    jparams = jax_tree(leaves)
+    jstate = jax_opt.adamw_init(jparams)
+    for step in range(5):
+        scale = 3.0 if step % 2 else 0.05    # some steps clipped, some not
+        g = {n: (rng.standard_normal(a.shape) * scale).astype(np.float32)
+             for n, a in leaves.items()}
+        params, state, m = opt.adamw_update(
+            cfg, params, {n: torch.from_numpy(a) for n, a in g.items()}, state)
+        jparams, jstate, jm = jax_opt.adamw_update(jcfg, jparams, jax_tree(g), jstate)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-6)
+        np.testing.assert_allclose(float(m["lr"]), float(jm["lr"]), rtol=1e-6)
+        for n, want in from_jax(jparams).items():
+            np.testing.assert_allclose(params[n].numpy(), np.asarray(want),
+                                       rtol=1e-6, atol=1e-6, err_msg=n)
+        for key in ("m", "v"):
+            for n, want in from_jax(jstate[key]).items():
+                np.testing.assert_allclose(state[key][n].numpy(), np.asarray(want),
+                                           rtol=1e-6, atol=1e-7, err_msg=n)
+    assert int(state["step"]) == int(jstate["step"]) == 5
+
+
+def test_weight_decay_follows_the_reference_trees_rank():
+    # only the top-level rank-1 leaves escape decay; a layer's norm scale is
+    # rank 2 in the reference (stacked on the layer axis) and is decayed
+    decayed = {n for n, p in build_model(get_smoke("nemotron-4-15b"), device="meta")
+               .named_parameters() if opt.reference_rank(n, p) >= 2}
+    assert "layers.0.norm1.scale" in decayed and "layers.1.norm2.bias" in decayed
+    assert not {"final_norm.scale", "final_norm.bias"} & decayed
+    assert "embed" in decayed
+
+
+def test_global_norm_matches_reference(rng):
+    leaves, jax_tree, _ = _opt_trees(rng)
+    got = opt.global_norm({n: torch.from_numpy(a) for n, a in leaves.items()})
+    np.testing.assert_allclose(float(got), float(jax_opt.global_norm(jax_tree(leaves))),
+                               rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_matches_reference(microbatches):
+    over = dict(dtype="float32")
+    jmodel, params, model, cfg = _pair("chatglm3-6b", **over)
+    kw = dict(lr=1e-3, eps=1e-4, warmup_steps=2, total_steps=3)   # eps: see above
+    jstep = jax.jit(jax_ts.make_train_step(jmodel, jax_opt.OptimizerConfig(**kw),
+                                           microbatches=microbatches))
+    jstate = jax_ts.TrainState(params, jax_opt.adamw_init(params))
+    tparams = dict(model.named_parameters())
+    state = TrainState(tparams, opt.adamw_init(tparams))
+    step = make_train_step(model, opt.OptimizerConfig(**kw), microbatches=microbatches)
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        toks = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        jstate, jm = jstep(jstate, {"tokens": jnp.asarray(toks)})
+        state, m = step(state, {"tokens": torch.from_numpy(toks)})
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(m[key]), float(jm[key]), **F32, err_msg=key)
+    want = params_from_jax(jax.tree.map(np.asarray, jstate.params), cfg)
+    for n, p in state.params.items():
+        np.testing.assert_allclose(p.detach().numpy(), want[n].numpy(), **F32, err_msg=n)
+
+
+def test_train_step_refuses_int8_sync_and_meshes():
+    model = build_model(get_smoke("chatglm3-6b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="M8"):
+        make_train_step(model, opt.OptimizerConfig(), grad_sync="int8")
+    with pytest.raises(NotImplementedError, match="M8"):
+        make_train_step(model, opt.OptimizerConfig(), mesh=object())
+
+
+# ---------------------------------------------------------------------------
+# checkpoints, launcher, data
+# ---------------------------------------------------------------------------
+
+def _state(rng):
+    params = {"w": torch.from_numpy(rng.standard_normal((3, 4)).astype(np.float32)),
+              "b": torch.from_numpy(rng.standard_normal(4).astype(np.float32)
+                                    ).to(torch.bfloat16)}
+    return TrainState(params, opt.adamw_init(params))
+
+
+def test_checkpoint_round_trip_is_exact(rng, tmp_path):
+    state = _state(rng)
+    state.opt["step"] += 7
+    state.opt["m"]["w"].normal_()
+    path = save_checkpoint(str(tmp_path), 7, state, extra={"sampler_step": 3})
+    assert os.path.basename(path) == "step_00000007"
+    assert sorted(os.listdir(path)) == ["arrays.npz", "manifest.json"]
+    target = _state(np.random.default_rng(9))
+    got, manifest = restore_checkpoint(str(tmp_path), target)
+    assert got is target
+    assert manifest["step"] == 7 and manifest["extra"] == {"sampler_step": 3}
+    assert manifest["keys"] == sorted(["params/w", "params/b", "opt/m/w", "opt/m/b",
+                                       "opt/v/w", "opt/v/b", "opt/step"])
+    assert "time" in manifest
+    for (name, a), b in zip(_named(state), [t for _, t in _named(target)]):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def _named(state):
+    return [("params/" + n, p) for n, p in state.params.items()] + \
+        [(f"opt/{k}/" + n, t) for k in ("m", "v") for n, t in state.opt[k].items()] + \
+        [("opt/step", state.opt["step"])]
+
+
+def test_checkpoint_ignores_tmp_and_keep_prunes(rng, tmp_path):
+    d = str(tmp_path)
+    mgr = CheckpointManager(d, keep=2)
+    state = _state(rng)
+    for step in (1, 2, 3):
+        mgr.save(step, state)
+    mgr.wait()
+    assert [s for s, _ in list_checkpoints(d)] == [2, 3] == [2, mgr.latest_step()]
+    os.makedirs(os.path.join(d, "step_00000009.tmp"))      # a crash mid-write
+    assert mgr.latest_step() == 3
+    _, manifest = restore_checkpoint(d, _state(rng))
+    assert manifest["step"] == 3
+    with pytest.raises(FileNotFoundError):
+        restore_checkpoint(d, _state(rng), step=1)
+
+
+def test_resume_gives_the_same_steps_as_never_stopping(tmp_path):
+    cfg = get_smoke("chatglm3-6b")
+    kw = dict(steps=4, global_batch=4, seq_len=16, num_samples=12, device="cpu",
+              log=lambda s: None)
+    ck = str(tmp_path / "ck")
+    full = launch_train.run(cfg, **kw, ckpt_dir=ck, ckpt_every=2)
+    assert [s for s, _ in list_checkpoints(ck)] == [2, 4]
+    shutil.rmtree(dict(list_checkpoints(ck))[4])          # as if stopped after step 2
+    resumed = launch_train.run(cfg, **kw, ckpt_dir=ck, resume=True)
+    assert [r["step"] for r in resumed["history"]] == [3, 4]
+    for key in ("loss", "grad_norm", "lr"):
+        assert [r[key] for r in resumed["history"]] == \
+            [r[key] for r in full["history"][2:]]
+    for n, p in full["state"].params.items():
+        assert torch.equal(p, resumed["state"].params[n]), n
+
+
+def test_train_main_on_cpu(capsys):
+    out = launch_train.main(["--device", "cpu", "--arch", "chatglm3-6b", "--steps", "3",
+                             "--global-batch", "4", "--seq-len", "16",
+                             "--num-samples", "16"])
+    hist = out["history"]
+    assert [r["step"] for r in hist] == [1, 2, 3]
+    assert all(np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in hist)
+    assert "done: chatglm3-6b on cpu, 2 layers, 3 steps" in capsys.readouterr().out
+
+
+def test_train_refuses_cpu_fallback_and_other_families(monkeypatch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        launch_train.run(get_smoke("falcon-mamba-7b"), steps=1, global_batch=2,
+                         seq_len=8, num_samples=4, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.run(get_smoke("chatglm3-6b"), steps=1, global_batch=2,
+                         seq_len=8, num_samples=4)
+
+
+def test_data_copies_match_reference():
+    np.testing.assert_array_equal(token_dataset(20, 9, 100, seed=3),
+                                  jax_token_dataset(20, 9, 100, seed=3))
+    mine, theirs = GlobalUniformSampler(10, 3, seed=2), JaxSampler(10, 3, seed=2)
+    for _ in range(7):                      # across an epoch boundary
+        np.testing.assert_array_equal(mine.next_batch(), theirs.next_batch())
+        assert (mine.state.epoch, mine.state.step) == (theirs.state.epoch,
+                                                       theirs.state.step)
