@@ -10,7 +10,8 @@ Phases, each of which raises on a failed check:
      four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print ptxas' registers and spills per kernel instance
      (flash attention: one per head dim, setting of the two attention flags
-     and LSE output; its backward: one per head dim and kernel);
+     and LSE output; its backward: one per head dim and kernel), and fail
+     if a kernel of the backward spills;
   2. references at a small size: the chatglm3, falcon-mamba and hymba smoke
      models in f32 on the card (through the kernels) against the same
      weights on the CPU (plain path); then training: the chatglm3 smoke
@@ -62,7 +63,8 @@ Phases, each of which raises on a failed check:
      cuobjdump shows of its time loop (registers, spills, instructions and
      MUFU.EX2 per update); K2b against the plain backward at chatglm3-6b's
      training shape and hymba-1.5b's, its time beside its bound, SDPA's
-     backward and K2's with and without the LSE output; K2's LSE against
+     backward and K2's with and without the LSE output, and the device
+     time of its D pre-pass and main kernel apart; K2's LSE against
      the plain one taken in f32, and K2 then K2b against the plain forward
      then the plain backward in f32.
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` name/power
@@ -835,6 +837,11 @@ def kernel_rows(dev, out: dict, by_path: dict):
     lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dos,
                                                      retain_graph=True), 10)
     k2b_ms = time_ms(lambda: flash_attention_bwd(qa, ka, va, o, lse, do), 5)
+    # its two launches apart: the D pre-pass and the main kernel
+    _, _, parts = device_profile(lambda: [flash_attention_bwd(qa, ka, va, o, lse, do)
+                                          for _ in range(5)])
+    k2b_parts = {k: sum(ms for n, ms in parts.items() if k in n) / 5
+                 for k in ("flash_bwd_prep", "flash_bwd_wgmma")}
     k2_ms_a = time_ms(lambda: flash_attention(qa, ka, va), 10)        # without, with,
     k2_lse_a = time_ms(lambda: flash_attention(qa, ka, va, return_lse=True), 10)
     k2_lse_b = time_ms(lambda: flash_attention(qa, ka, va, return_lse=True), 10)
@@ -852,7 +859,7 @@ def kernel_rows(dev, out: dict, by_path: dict):
                          windows=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd_ms,
         tflops=bw_flops / k2b_ms / 1e9, bound_share=b_ms / k2b_ms,
-        hymba_ms=hymba_bwd_ms, by_shape=bw,
+        hymba_ms=hymba_bwd_ms, by_shape=bw, device_ms_by_kernel=k2b_parts,
         k2_ms=[k2_ms_a, k2_ms_b], k2_lse_ms=[k2_lse_a, k2_lse_b]))
     del qs, ks, vs, qs_, ks_, vs_, lib_out, dos, o, lse, do, hymba_args, do_h
     del qa, ka, va, qh, kh, vh
@@ -932,7 +939,10 @@ def kernel_rows(dev, out: dict, by_path: dict):
                                      f"training shape), tol rtol=atol=2e-2, deterministic; "
                                      f"{by['flash_attention_bwd']['tflops']:.1f} TFLOP/s, "
                                      f"{by['flash_attention_bwd']['bound_share']:.3f} of the bound (2.5 x the "
-                                     f"forward's {flops:.4g} FLOP); library = SDPA's backward "
+                                     f"forward's {flops:.4g} FLOP); device ms a call by "
+                                     f"kernel (profiler) "
+                                     f"{ {k: round(v, 4) for k, v in k2b_parts.items()} }; "
+                                     f"library = SDPA's backward "
                                      f"alone, kv heads repeated; K2 without / with LSE "
                                      f"{k2_ms_a:.4f} / {k2_lse_a:.4f}, {k2_lse_b:.4f} / "
                                      f"{k2_ms_b:.4f} ms; K2 then K2b vs the plain forward "
@@ -1095,6 +1105,10 @@ def main(argv) -> int:
     names = demangled(fn for _, fn, _ in lines)
     for name, fn, line in lines:
         log(f"[1]   {name} {names[fn]}: {line}")
+    spills = [f"{names[fn]}: {line}" for name, fn, line in lines
+              if name == "flash_attn_bwd" and "spill" in line
+              and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    check(not spills, f"no K2b kernel spills registers: {spills}")
 
     for arch in SERVED:
         reference_small(dev, arch)

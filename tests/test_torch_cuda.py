@@ -331,6 +331,10 @@ BWD_SHAPES = [
     (2, 129, 16, 1, 128, 50, True),     # group 16, a 1-row last tile
     (1, 100, 4, 2, 32, None, False),    # not causal
     (1, 100, 4, 2, 32, 30, False),      # not causal, window
+    (1, 2048, 32, 2, 128, None, True),  # chatglm3-6b's heads at full T: the longest dQ chains
+    (2, 333, 8, 2, 64, 40, True),       # ragged T, a window shorter than one key item
+    (2, 37, 8, 2, 128, None, True),     # T under one item
+    (4, 2048, 8, 4, 64, None, True),    # B=4: many more items than SMs
 ]
 
 
