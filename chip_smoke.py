@@ -7,16 +7,17 @@
 
 Phases, each of which raises on a failed check:
   1. environment: torch version, the card's name and power limit; build the
-     four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each, in
+     five CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print ptxas' registers and spills per kernel instance
      (flash attention: one per head dim, setting of the two attention flags
      and LSE output; its backward: one per head dim and kernel), and fail
-     if a kernel of the backward spills;
+     if a kernel of either backward (K2b, K3b) spills;
   2. references at a small size: the chatglm3, falcon-mamba and hymba smoke
      models in f32 on the card (through the kernels) against the same
-     weights on the CPU (plain path); then training: the chatglm3 smoke
-     model's loss and every gradient on the card (K2 and its backward, K2b)
-     against the CPU's, and one AdamW step's parameters;
+     weights on the CPU (plain path); then training each of the three smoke
+     models in f32 with remat: the loss and every gradient on the card (K2
+     and K2b, K3 and K3b) against the CPU's, the launch counts, and one
+     AdamW step's parameters;
   3. the main paths, each with every kernel launch counter set to 0 just
      before it and read just after:
      a. device tier: a block-quantized ImageNet-size record store
@@ -40,15 +41,20 @@ Phases, each of which raises on a failed check:
         window 1024 but in layers 0, 15 and 31, d_inner 3200), one flash
         attention and one selective-scan launch per layer of the prefill;
         then (i) its logits checked and (j) its profile, with both kernels'
-        shares of device busy;
+        shares of device busy; no backward kernel launches while serving;
      k. with hymba-1.5b and the stores freed: training chatglm3-6b at full
         width and 12 of its 28 layers (f32 parameters, gradients and AdamW
         moments, bf16 compute, remat) through ``repro_torch.launch.train.run``:
         4 steps of a 4 x 2048 global batch fetched from its token store,
         24 K2 and 12 K2b launches a step, the loss and every parameter
-        finite after each step; step time, tokens/s, the model-FLOP share
-        of the bf16 peak, peak memory, a profile of a fifth, warm step, and
-        the device time of a sixth one's forward, backward and AdamW update;
+        finite after each step and the loss falling; step time, tokens/s,
+        the model-FLOP share of the bf16 peak, peak memory, a profile of a
+        fifth, warm step, and the device time of a sixth one's forward,
+        backward and AdamW update;
+     l. the same for hymba-1.5b at full width and depth (32 layers): 64 K2,
+        32 K2b, 64 K3 and 32 K3b launches a step;
+     m. the same for falcon-mamba-7b at full width and 24 of its 64 layers:
+        48 K3 and 24 K3b launches a step;
   4. each kernel against its plain version at its main path's shapes, and
      its time beside the plain version's, a library call's where one exists
      and the card's bound for the same work (for K2 also its TFLOP/s and
@@ -61,8 +67,12 @@ Phases, each of which raises on a failed check:
      its time at hymba-1.5b's shape and with one channel fewer than the
      path's (D not a multiple of 8: element-wise staging), and what
      cuobjdump shows of its time loop (registers, spills, instructions and
-     MUFU.EX2 per update); K2b against the plain backward at chatglm3-6b's
-     training shape and hymba-1.5b's, its time beside its bound, SDPA's
+     MUFU.EX2 per update); K3b against the plain backward at
+     falcon-mamba-7b's training shape (init-like and trained-like inputs)
+     and hymba-1.5b's, bf16 inputs, f32 dy and a nonzero dh_final, the same
+     bits on two runs, its time beside its bound and the special-function-unit
+     floor; K2b against the plain backward at chatglm3-6b's training shape
+     and hymba-1.5b's, its time beside its bound, SDPA's
      backward and K2's with and without the LSE output, and the device
      time of its D pre-pass and main kernel apart; K2's LSE against
      the plain one taken in f32, and K2 then K2b against the plain forward
@@ -112,13 +122,25 @@ N_IMG, G_IMG = 40_000, 256         # store A records, global batch
 N_TOK, L_TOK, G_TOK = 262_144, 2_048, 4   # store B records, tokens, prompts
 DECODE_STEPS = 32
 SERVED = ("chatglm3-6b", "falcon-mamba-7b", "hymba-1.5b")
-# training: chatglm3-6b at full width, depth cut to what one card holds
-TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_STEPS = "chatglm3-6b", 12, 4, 4
-TRAIN_SAMPLES = 8_192              # its token store: 8192 x 2048 tokens, 64 MiB
+# training, one model after another (tag, arch, layers, peak lr): chatglm3-6b
+# at full width with its depth cut to what one card holds, hymba-1.5b at full
+# width and depth, falcon-mamba-7b at full width and 24 of its 64 layers. At
+# the launcher's default lr of 1e-3 (warmed up over 2 steps) falcon-mamba-7b
+# diverges at its third step with K3b and with the plain backward alike
+# (scripts/ssm_train_check.py), so it trains at 3e-4
+TRAIN_RUNS = (("3k", "chatglm3-6b", 12, 1e-3), ("3l", "hymba-1.5b", 32, 1e-3),
+              ("3m", "falcon-mamba-7b", 24, 3e-4))
+TRAIN_B, TRAIN_STEPS = 4, 4
+TRAIN_SAMPLES = 8_192              # each token store: 8192 x 2048 tokens, 64 MiB
+# the kernels each family's training step launches, and how many a layer
+# (the forward, its remat recompute and the backward)
+TRAIN_KERNELS = {"dense": {"flash_attention": 2, "flash_attention_bwd": 1},
+                 "ssm": {"ssm_scan": 2, "ssm_scan_bwd": 1},
+                 "hybrid": {"flash_attention": 2, "flash_attention_bwd": 1,
+                            "ssm_scan": 2, "ssm_scan_bwd": 1}}
 # a wrapper's kernel as torch.profiler names it
 PROFILED_AS = {"flash_attention": "flash_fwd", "ssm_scan": "ssm_scan_kernel",
-               "flash_attention_bwd": "flash_bwd"}
-
+               "flash_attention_bwd": "flash_bwd", "ssm_scan_bwd": "ssm_scan_bwd"}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -217,40 +239,41 @@ def reference_small(dev, arch: str) -> None:
         f"max_abs_err={err:.3g} (tol 1e-4); greedy tokens identical")
 
 
-def reference_train_small(dev) -> None:
-    """The chatglm3 smoke model in f32, remat on: loss and every gradient on
-    the card (K2 + K2b) against the CPU (plain path) within 1e-4, then one
-    AdamW step's parameters within 1e-5. eps 1e-4 keeps the update off the
-    gradients' rounding noise (the key bias's gradient is zero in the dims
-    RoPE leaves alone, and Adam would scale its noise up to lr)."""
+def reference_train_small(dev, arch: str, kernels: dict) -> None:
+    """A smoke model in f32, remat on: loss and every gradient on the card
+    (the family's kernels and their backward kernels) against the CPU (plain
+    path) within 1e-4, then one AdamW step's parameters within 1e-5. eps
+    1e-4 keeps the update off the gradients' rounding noise (the key bias's
+    gradient is zero in the dims RoPE leaves alone, and Adam would scale its
+    noise up to lr)."""
     from repro_torch.configs import get_smoke
-    from repro_torch.kernels.flash_attn import flash_attention
-    from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd
     from repro_torch.models import build_model
     from repro_torch.train.optimizer import OptimizerConfig, adamw_init
     from repro_torch.train.train_step import TrainState, make_train_step
 
-    cfg = get_smoke(TRAIN_ARCH).scaled(dtype="float32", loss_chunk=64)
+    cfg = get_smoke(arch).scaled(dtype="float32", loss_chunk=64)
+    check(cfg.remat, f"{arch} smoke config trains with remat")
     cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
     card = build_model(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
     toks = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (4, 100)).astype(np.int32))
-    before = (flash_attention.launches, flash_attention_bwd.launches)
+    on_path = TRAIN_KERNELS[cfg.family]
+    before = {n: kernels[n].launches for n in on_path}
     losses = []
     for model, t in ((card, toks.to(dev)), (cpu, toks)):
         loss, _ = model.loss(t)
         loss.backward()
         losses.append(loss.item())
-    counts = (flash_attention.launches - before[0], flash_attention_bwd.launches - before[1])
-    check(counts == (2 * cfg.num_layers, cfg.num_layers),
-          f"small training: K2, K2b launches {counts} == (2, 1) x layers")
+    counts = {n: kernels[n].launches - before[n] for n in on_path}
+    check(counts == {n: k * cfg.num_layers for n, k in on_path.items()},
+          f"small training {arch}: launches {counts} == {on_path} x {cfg.num_layers} layers")
     cpu_p = dict(cpu.named_parameters())
     loss_err = abs(losses[0] - losses[1])
     grad_err = max((p.grad.cpu() - cpu_p[n].grad).abs().max().item()
                    for n, p in card.named_parameters())
     check(loss_err <= 1e-4 and grad_err <= 1e-4,
-          f"small training loss err {loss_err}, grad err {grad_err} <= 1e-4")
+          f"small training {arch} loss err {loss_err}, grad err {grad_err} <= 1e-4")
     ocfg = OptimizerConfig(lr=1e-3, eps=1e-4, warmup_steps=2, total_steps=4)
     for model, t in ((card, toks.to(dev)), (cpu, toks)):
         params = dict(model.named_parameters())
@@ -258,10 +281,11 @@ def reference_train_small(dev) -> None:
                                      {"tokens": t})
     step_err = max((p.detach().cpu() - cpu_p[n].detach()).abs().max().item()
                    for n, p in card.named_parameters())
-    check(step_err <= 1e-5, f"small training AdamW step params err {step_err} <= 1e-5")
-    log(f"[2] small training: {TRAIN_ARCH} smoke f32, remat, 4 x 100 tokens: card "
-        f"(K2 {counts[0]}, K2b {counts[1]} launches) vs cpu loss err {loss_err:.3g}, "
-        f"max grad err {grad_err:.3g} (tol 1e-4); one AdamW step's params max err "
+    check(step_err <= 1e-5, f"small training {arch} AdamW step params err "
+          f"{step_err} <= 1e-5")
+    log(f"[2] small training: {arch} smoke f32, remat, 4 x 100 tokens: card "
+        f"(launches {counts}) vs cpu loss err {loss_err:.3g}, max grad err "
+        f"{grad_err:.3g} (tol 1e-4); one AdamW step's params max err "
         f"{step_err:.3g} (tol 1e-5)")
 
 
@@ -469,61 +493,88 @@ def profile_serving(tag: str, model, prompt, kernels) -> dict:
     return res
 
 
-def train_full(dev, counters) -> dict:
-    """[3k] chatglm3-6b at full width, 12 layers, trained 4 steps through
-    ``launch.train.run``; a fifth, warm step under the profiler."""
+def attention_pairs(cfg, t: int) -> int:
+    """(query, key) pairs one sequence of ``t`` tokens scores across the
+    model's attention layers, heads counted (causal, windowed where the
+    layer is)."""
+    from repro_torch.models.transformer import layer_window
+
+    if cfg.attention_free:
+        return 0
+    total = 0
+    for i in range(cfg.num_layers):
+        w = layer_window(cfg, i) or t
+        w = min(w, t)
+        total += w * (w + 1) // 2 + (t - w) * w
+    return total * cfg.num_heads
+
+
+def train_full(dev, kernels: dict, tag: str, arch: str, layers: int,
+               lr: float) -> dict:
+    """``arch`` at full width and ``layers`` layers (f32 parameters,
+    gradients and AdamW moments, bf16 compute, remat) trained TRAIN_STEPS
+    steps of a TRAIN_B x 2048 batch at peak lr ``lr`` through
+    ``launch.train.run``, the
+    family's kernel launches checked each step; then a warm step under the
+    profiler and one more timed by phase."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.models import build_model
 
-    full = get_config(TRAIN_ARCH)
-    cfg = full.scaled(num_layers=TRAIN_LAYERS)
+    full = get_config(arch)
+    cfg = full.scaled(num_layers=layers)
+    on_path = TRAIN_KERNELS[cfg.family]
     per_layer = sum(p.numel() for p in build_model(
         full.scaled(num_layers=1), device="meta").layers[0].parameters())
+    embeds = (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * cfg.d_model
     check(cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32",
           "training config: remat, bf16 compute, f32 parameters")
-    log(f"[3k] {TRAIN_ARCH} training at full width (d_model {cfg.d_model}, "
-        f"{cfg.num_heads} heads, KV {cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}), depth cut {full.num_layers} -> {cfg.num_layers} layers: "
-        f"f32 parameters, gradients and both AdamW moments take 16 B a parameter, "
-        f"{full.num_layers} layers would need "
-        f"{16 * (full.num_layers * per_layer + 2 * cfg.vocab_size * cfg.d_model) / 1e9:.1f}"
-        f" GB of the card's 80")
-    seen = {"k2": 0, "k2b": 0}
+    log(f"[{tag}] {arch} training at full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads, KV {cfg.num_kv_heads}, d_ff {cfg.d_ff}, d_inner "
+        f"{cfg.d_inner if cfg.family != 'dense' else '-'}, vocab {cfg.vocab_size}), "
+        f"{cfg.num_layers} of {full.num_layers} layers, peak lr {lr:g}: f32 parameters, "
+        f"gradients and "
+        f"both AdamW moments take 16 B a parameter, {per_layer / 1e6:.1f} M a layer "
+        f"+ {embeds / 1e6:.1f} M embedding: {cfg.num_layers} layers "
+        f"{16 * (cfg.num_layers * per_layer + embeds) / 1e9:.1f} GB, all "
+        f"{full.num_layers} {16 * (full.num_layers * per_layer + embeds) / 1e9:.1f} GB"
+        f" of the card's 80")
+    seen = {n: 0 for n in on_path}
     per_step = []
 
     def on_step(n, rec, state):
-        k2, k2b = (counters["flash_attention"].launches,
-                   counters["flash_attention_bwd"].launches)
-        per_step.append((k2 - seen["k2"], k2b - seen["k2b"]))
-        seen.update(k2=k2, k2b=k2b)
+        now = {k: kernels[k].launches for k in on_path}
+        per_step.append({k: now[k] - seen[k] for k in on_path})
+        seen.update(now)
         finite = math.isfinite(rec["loss"]) and all(
             bool(torch.isfinite(p).all()) for p in state.params.values())
         check(finite, f"step {n}: loss and every parameter finite")
-        log(f"[3k] step {n}: loss {rec['loss']:.4f} (ln {cfg.vocab_size} = "
+        log(f"[{tag}] step {n}: loss {rec['loss']:.4f} (ln {cfg.vocab_size} = "
             f"{math.log(cfg.vocab_size):.2f}), grad_norm {rec['grad_norm']:.4f}, "
             f"lr {rec['lr']:.3e}, {rec['step_s'] * 1e3:.1f} ms host clock")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = train.run(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_B, seq_len=L_TOK,
-                    num_samples=TRAIN_SAMPLES, seed=SEED, device=dev,
-                    log=lambda m: log(f"[3k] {m}"), on_step=on_step)
+                    num_samples=TRAIN_SAMPLES, lr=lr, seed=SEED, device=dev,
+                    log=lambda m: log(f"[{tag}] {m}"), on_step=on_step)
     run_s = time.perf_counter() - t0
-    counts = {name: k.launches for name, k in counters.items()}    # the main path's
-    for n, (k2, k2b) in enumerate(per_step, 1):
-        check(k2 == 2 * cfg.num_layers and k2b == cfg.num_layers,
-              f"step {n}: K2 {k2} == 2 x {cfg.num_layers} (forward + remat "
-              f"recompute), K2b {k2b} == {cfg.num_layers}")
+    counts = {name: k.launches for name, k in kernels.items()}     # the main path's
+    want = {k: per * cfg.num_layers for k, per in on_path.items()}
+    for n, got in enumerate(per_step, 1):
+        check(got == want, f"step {n}: launches {got} == {want} (forward + remat "
+              f"recompute, and one backward, a layer)")
     hist = out["history"]
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          f"the loss fell over the {len(hist)} steps")
     warm = [r["step_s"] for r in hist[1:]]
     tokens = TRAIN_B * L_TOK
     params = out["model"].param_count()
-    n_mm = params - cfg.vocab_size * cfg.d_model          # the input lookup does no product
-    pairs = TRAIN_B * cfg.num_heads * L_TOK * (L_TOK + 1) // 2
-    attn = 3 * cfg.num_layers * pairs * 4 * cfg.head_dim  # forward and backward
+    # the input lookup does no product; a tied embedding is the output product
+    n_mm = params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    attn = 3 * TRAIN_B * attention_pairs(cfg, L_TOK) * 4 * cfg.head_dim
     model_flops = 6 * n_mm * tokens + attn
-    res = dict(layers=cfg.num_layers, params=params, steps=hist,
+    res = dict(arch=arch, layers=cfg.num_layers, lr=lr, params=params, steps=hist,
                cold_step_ms=hist[0]["step_s"] * 1e3,
                warm_step_ms=[t * 1e3 for t in warm],
                tokens_per_s=tokens / statistics.median(warm),
@@ -531,15 +582,15 @@ def train_full(dev, counters) -> dict:
                mfu=model_flops / statistics.median(warm) / PEAK_BF16_FLOPS,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches_per_step=per_step, run_s=run_s, counts=counts)
-    log(f"[3k] {cfg.num_layers} layers, {params / 1e9:.3f} B params; cold step "
+    log(f"[{tag}] {cfg.num_layers} layers, {params / 1e9:.3f} B params; cold step "
         f"{res['cold_step_ms']:.1f} ms, warm steps "
         f"{', '.join(f'{t:.1f}' for t in res['warm_step_ms'])} ms (host clock, fetch "
         f"+ step + synchronize); {res['tokens_per_s']:.0f} tokens/s; model FLOPs "
-        f"6 N tokens + causal attention 3 x 4 dh pairs (N = {n_mm / 1e9:.3f} B "
-        f"parameters in products, remat recompute not counted) = "
+        f"6 N tokens + attention 3 x 4 dh a (q, k) pair (N = {n_mm / 1e9:.3f} B "
+        f"parameters in products; the scan, remat recompute not counted) = "
         f"{model_flops:.4g} a step, {res['mfu']:.3f} of {PEAK_BF16_FLOPS / 1e12:.0f} "
         f"TFLOP/s bf16 at the median warm step; peak device memory "
-        f"{res['peak_mem_gb']:.2f} GB; launches per step (K2, K2b) {per_step}; "
+        f"{res['peak_mem_gb']:.2f} GB; launches per step {per_step}; "
         f"run() incl. init and token store {run_s:.1f} s")
 
     def step():
@@ -547,19 +598,21 @@ def train_full(dev, counters) -> dict:
 
     share, busy_ms, by_name = device_profile(step)
     if share is None:
-        log("[3k] profile: profiler recorded no device time (not measured)")
+        log(f"[{tag}] profile: profiler recorded no device time (not measured)")
     else:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        k_ms = {k: sum(ms for n, ms in by_name.items() if k in n)
-                for k in ("flash_fwd", "flash_bwd")}
+        k_ms = {}
+        for k in on_path:
+            key = PROFILED_AS[k]
+            k_ms[key] = sum(ms for n, ms in by_name.items() if key in n)
         res["profile"] = dict(busy_share=share, busy_ms=busy_ms, kernel_ms=k_ms)
-        log(f"[3k] profile of one warm step: device busy {busy_ms:.2f} ms, "
+        log(f"[{tag}] profile of one warm step: device busy {busy_ms:.2f} ms, "
             f"{share:.3f} of the kernel window (torch.profiler); "
             + "; ".join(f"{k} {ms:.2f} ms = {ms / busy_ms:.3f} of busy"
                         for k, ms in k_ms.items())
             + f"; top kernels (name, ms): {[(n[:60], round(ms, 2)) for n, ms in top]}")
     res["phases_ms"] = step_phases(out)
-    log("[3k] one more warm step by CUDA events (ms): " + ", ".join(
+    log(f"[{tag}] one more warm step by CUDA events (ms): " + ", ".join(
         f"{k} {v:.1f}" for k, v in res["phases_ms"].items()))
     del out
     return res
@@ -686,6 +739,40 @@ def k3_sass() -> dict:
                                              enumerate(loop) if "LDG" in op))
 
 
+def k3b_run(ssm_scan_bwd, ref, dev, gen, shape, kind: str) -> dict:
+    """K3b against the plain backward (``ssm_scan_bwd_ref``) on bf16 inputs
+    drawn by ``k3_inputs``, a random f32 dy and a nonzero dh_final. The
+    tolerance: du, ddt, dB and dC (bf16) within rtol 1e-2, one bf16 ulp (both
+    sides round the same f32 value once, and f32 sums in another order can
+    fall on either side of a rounding boundary); da_log and dD (f32) within
+    rtol 1e-4; each with an atol of 1e-4 of the tensor's largest magnitude
+    (f32 sums of up to 8192 terms in another order, and 2^x by ex2.approx
+    against exp). Two runs give the same bits."""
+    b, t, d, s = shape
+    args = [x.to(torch.bfloat16) if i < 4 else x for i, x in
+            enumerate(k3_inputs(dev, gen, shape, trained=kind == "trained-like"))]
+    dy = torch.randn((b, t, d), generator=gen, device=dev)
+    dh = torch.randn((b, d, s), generator=gen, device=dev)
+    got = ssm_scan_bwd(*args, dy, dh)
+    want = ref.ssm_scan_bwd_ref(*args, dy, dh)
+    errs = []
+    for name, g, w in zip(("du", "ddt", "dB", "dC", "da_log", "dD"), got, want):
+        check(g.dtype == w.dtype, f"K3b {name} dtype {g.dtype} == {w.dtype}")
+        scale = max(1.0, w.float().abs().max().item())
+        rtol = 1e-2 if g.dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=1e-4 * scale)
+        errs.append((g.float() - w.float()).abs().max().item())
+    del want
+    again = ssm_scan_bwd(*args, dy, dh)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"K3b at {list(shape)} {kind}: two runs give the same bits")
+    log(f"[4] ssm_scan_bwd at B,T,D,S={list(shape)} {kind}, bf16 in, f32 dy and "
+        f"dh_final: max_abs_err (du, ddt, dB, dC, da_log, dD) "
+        f"{[float(f'{e:.3g}') for e in errs]} (tol: bf16 rtol 1e-2, f32 rtol 1e-4, "
+        f"atol 1e-4 x max); two runs bit-equal")
+    return dict(max_abs_err=max(errs), args=(args, dy, dh))
+
+
 def flag_runs(flash_attention, ref, q, k, v, window) -> dict:
     """K2 with each attention flag and with both against the plain version
     given the same flags (bf16, tolerance 2e-2); each one's time, and the
@@ -758,6 +845,7 @@ def kernel_rows(dev, out: dict, by_path: dict):
     from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd
     from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd
 
     def launches(name: str) -> dict:
         return dict(launches=sum(c[name] for c in by_path.values()),
@@ -916,6 +1004,41 @@ def kernel_rows(dev, out: dict, by_path: dict):
         mufu_floor_ms=mufu_ms, sm_clock_mhz=mhz, hymba_ms=hy_ms,
         odd_d_ms=od_ms, ms_after_odd_d=k3_ms2, sass=k3_sass()))
     del args16
+
+    # K3b, the scan's backward, at falcon-mamba-7b's training shape (init-like
+    # and trained-like inputs) and hymba-1.5b's, bf16 inputs, f32 dy and a
+    # nonzero dh_final, against the plain reverse loop
+    k3b = {}
+    for shape, kind in ((K3_SHAPE, "init-like"), (K3_SHAPE, "trained-like"),
+                        (K3_HYMBA, "init-like")):
+        k3b[(shape, kind)] = k3b_run(ssm_scan_bwd, ref, dev, gen, shape, kind)
+    args, dy, dh = k3b.pop((K3_SHAPE, "init-like"))["args"]
+    nbytes = (sum(x.numel() * x.element_size() for x in args) * 2   # in and out
+              + 4 * (dy.numel() + dh.numel()))
+    # per (b, t, d, s), counted as the arithmetic needs it once: the states
+    # (dt*A, exp, (dt*u)*B, the FMA into h: 5), the adjoint (dy*C + carry,
+    # g*ā*h_{t-1}, g*B, a*q + u*gB, g*(dt*u), dy*h, dt*q into da_log, ā*g:
+    # 13) and the four sums over S or D (4); per (b, t, d): dt*ΣgB + D*dy
+    # and dy*u into dD (4)
+    ops_count = 22 * b3 * t3 * d3 * s3 + 4 * b3 * t3 * d3
+    b_ms, b_by = bound(nbytes, ops_count, PEAK_F32_FLOPS)
+    k3b_ms = time_ms(lambda: ssm_scan_bwd(*args, dy, dh), 5)
+    hy_args, hy_dy, hy_dh = k3b[(K3_HYMBA, "init-like")].pop("args")
+    k3b_hy_ms = time_ms(lambda: ssm_scan_bwd(*hy_args, hy_dy, hy_dh), 5)
+    del hy_args, hy_dy, hy_dh
+    k3b_errs = {f"{'falcon' if sh == K3_SHAPE else 'hymba'} {kind}": r["max_abs_err"]
+                for (sh, kind), r in k3b.items()}
+    rows.append(dict(
+        name="ssm_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssm_scan_bwd.cu",
+        replaces="src/repro/models/mamba.py:85",
+        note="no TPU kernel: the backward JAX derives from selective_scan",
+        **launches("ssm_scan_bwd"), max_abs_err=k3b_errs["falcon trained-like"],
+        ms=k3b_ms,
+        plain_ms=time_ms(lambda: ref.ssm_scan_bwd_ref(*args, dy, dh), 1, windows=2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, bound_share=b_ms / k3b_ms,
+        bytes_ms=nbytes / PEAK_BYTES_S * 1e3, mufu_floor_ms=mufu_ms,
+        mufu_floor_two_exps_ms=2 * mufu_ms, hymba_ms=k3b_hy_ms, max_abs_errs=k3b_errs))
+    del args, dy, dh
     by = {r["name"]: r for r in rows}
     shapes = {"dequant": f"q {[n, f]} int8 -> bf16",
               "flash_attention": f"B,T,H,KV,dh={[B, T, H, KV, DH]} bf16 causal, "
@@ -935,6 +1058,14 @@ def kernel_rows(dev, out: dict, by_path: dict):
                           f"(element-wise staging) {od_ms:.4f} ms (max_abs_err "
                           f"{od_err:.3g}), then at D={d3} again {k3_ms2:.4f} ms; "
                           f"SASS {by['ssm_scan']['sass']}",
+              "ssm_scan_bwd": f"B,T,D,S={list(K3_SHAPE)} bf16 in, f32 dy and dh_final "
+                              f"(falcon-mamba-7b's training shape), deterministic; "
+                              f"{by['ssm_scan_bwd']['bound_share']:.3f} of the bound "
+                              f"(bytes alone {by['ssm_scan_bwd']['bytes_ms']:.4f} ms); "
+                              f"MUFU floor one exp an update {mufu_ms:.4f} ms, two "
+                              f"(as this design takes them) {2 * mufu_ms:.4f} ms; "
+                              f"max_abs_err {k3b_errs}; at hymba's "
+                              f"B,T,D,S={list(K3_HYMBA)} {k3b_hy_ms:.4f} ms",
               "flash_attention_bwd": f"B,T,H,KV,dh={[B, T, H, KV, DH]} bf16 causal (chatglm3-6b's "
                                      f"training shape), tol rtol=atol=2e-2, deterministic; "
                                      f"{by['flash_attention_bwd']['tflops']:.1f} TFLOP/s, "
@@ -1088,8 +1219,10 @@ def main(argv) -> int:
     from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd
     from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd
 
-    kernels = (dequant, flash_attention, flash_attention_bwd, ssm_scan)
+    kernels = (dequant, flash_attention, flash_attention_bwd, ssm_scan, ssm_scan_bwd)
+    by_name = {k.__name__: k for k in kernels}
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1097,7 +1230,8 @@ def main(argv) -> int:
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"card {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    reports = _build.build(["dequant", "flash_attn_fwd", "flash_attn_bwd", "ssm_scan"])
+    reports = _build.build(["dequant", "flash_attn_fwd", "flash_attn_bwd", "ssm_scan",
+                            "ssm_scan_bwd"])
     log(f"[1] built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.2f} s")
     lines = [(name, fn, line) for name, rep in reports.items()
@@ -1106,17 +1240,18 @@ def main(argv) -> int:
     for name, fn, line in lines:
         log(f"[1]   {name} {names[fn]}: {line}")
     spills = [f"{names[fn]}: {line}" for name, fn, line in lines
-              if name == "flash_attn_bwd" and "spill" in line
+              if name in ("flash_attn_bwd", "ssm_scan_bwd") and "spill" in line
               and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    check(not spills, f"no K2b kernel spills registers: {spills}")
+    check(not spills, f"no K2b or K3b kernel spills registers: {spills}")
 
     for arch in SERVED:
         reference_small(dev, arch)
-    reference_train_small(dev)
+    for _, arch, _, _ in TRAIN_RUNS:
+        reference_train_small(dev, arch, by_name)
 
     # the main paths, each with the counts set to 0 just before it and read
     # just after: the device tier, then each model serving the prompt it
-    # fetched (stores resident), one model at a time, then training
+    # fetched (stores resident), one model at a time, then training each
     out: dict = {}
     by_path: dict = {}
     zero_counts(kernels)
@@ -1139,7 +1274,8 @@ def main(argv) -> int:
         for name in on_path:
             check(counts[name] == res["layers"], f"{name} kernel launched once "
                   f"per layer of {arch}'s one prefill ({res['layers']})")
-        check(counts["flash_attention_bwd"] == 0, "serving launches no backward")
+        check(counts["flash_attention_bwd"] == 0 == counts["ssm_scan_bwd"],
+              "serving launches no backward")
         full_width_logits(f"3{tags[1]}", model, prompt)
         res["profile"] = profile_serving(f"3{tags[2]}", model, prompt,
                                          [PROFILED_AS[n] for n in on_path])
@@ -1149,10 +1285,12 @@ def main(argv) -> int:
     del out["stores"]
     torch.cuda.empty_cache()
 
-    zero_counts(kernels)
-    training = train_full(dev, {k.__name__: k for k in kernels})
-    by_path["training " + TRAIN_ARCH] = training.pop("counts")
-    torch.cuda.empty_cache()
+    training = {}
+    for tag, arch, layers, lr in TRAIN_RUNS:
+        zero_counts(kernels)
+        training[arch] = train_full(dev, by_name, tag, arch, layers, lr)
+        by_path["training " + arch] = training[arch].pop("counts")
+        torch.cuda.empty_cache()
 
     rows = kernel_rows(dev, out, by_path)
     log("[5] " + json.dumps({"serve": serving, "train": training,

@@ -13,8 +13,10 @@ it runs ``FlashAttention``, whose forward also keeps the row log-sum-exp and
 whose backward is the backward kernel (or ``ref.attention_bwd_ref``, picked
 the same way). Otherwise (``torch.no_grad``, ``torch.inference_mode``, or no
 input that requires a gradient) it calls the forward kernel as serving
-does, with no LSE and nothing saved. The selective scan has no backward yet:
-``ssm_scan`` refuses inputs that need one rather than drop the gradient.
+does, with no LSE and nothing saved. ``ssm_scan`` is differentiable the same
+way: under grad it runs ``SelectiveScan``, whose forward is the scan kernel
+(K3) and whose backward is the scan's backward kernel (K3b, or
+``ref.ssm_scan_bwd_ref``); otherwise it calls K3 as serving does.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.kernels.dequant import dequant as dequant_kernel
 from repro_torch.kernels.flash_attn import flash_attention as flash_kernel
 from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd as flash_bwd_kernel
 from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
+from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd as ssm_bwd_kernel
 
 
 def _pick(t: torch.Tensor, impl: Optional[str]) -> str:
@@ -89,13 +92,40 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return flash_kernel(q, k, v, **flags)
 
 
+class SelectiveScan(torch.autograd.Function):
+    """The selective scan with its gradient: K3 forward and K3b backward on a
+    card, ``ssm_scan_ref`` and ``ssm_scan_bwd_ref`` on the CPU (``impl`` as
+    in ``attention``). The forward saves its inputs only; the backward
+    recomputes the states. The cotangent of h_final seeds the reverse scan;
+    autograd passes None for it when h_final is unused (the training loss)."""
+
+    @staticmethod
+    def forward(ctx, u, dt, b_in, c_in, a_log, d_skip, impl):
+        scan = ref.ssm_scan_ref if impl == "ref" else ssm_kernel
+        y, h = scan(u, dt, b_in, c_in, a_log, d_skip)
+        ctx.save_for_backward(u, dt, b_in, c_in, a_log, d_skip)
+        ctx.impl = impl
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        saved = ctx.saved_tensors          # unpacked once (remat allows no more)
+        u = saved[0]
+        if dy is None:
+            dy = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+        bwd = ref.ssm_scan_bwd_ref if ctx.impl == "ref" else ssm_bwd_kernel
+        grads = bwd(*saved, dy.contiguous(),
+                    None if dh is None else dh.contiguous())
+        return (*grads, None)
+
+
 def ssm_scan(u, dt, b_in, c_in, a_log, d_skip, *,
              impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Selective scan from a zero state -> (y (B, T, D) f32, h_final (B, D, S) f32)."""
+    impl = _pick(u, impl)
     if _needs_grad(u, dt, b_in, c_in, a_log, d_skip):
-        raise NotImplementedError(
-            "K3 (the selective scan) has no backward yet (ROADMAP Queue 1 item "
-            "3); call it under torch.no_grad or on inputs that need no gradient")
-    if _pick(u, impl) == "ref":
+        return SelectiveScan.apply(u, dt, b_in, c_in, a_log, d_skip, impl)
+    if impl == "ref":
         return ref.ssm_scan_ref(u, dt, b_in, c_in, a_log, d_skip)
     return ssm_kernel(u, dt, b_in, c_in, a_log, d_skip)

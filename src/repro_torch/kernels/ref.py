@@ -57,6 +57,61 @@ def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b_in: torch.Tensor,
     return y + uf * d_skip.float(), h
 
 
+def ssm_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor, b_in: torch.Tensor,
+                     c_in: torch.Tensor, a_log: torch.Tensor,
+                     d_skip: torch.Tensor, dy: torch.Tensor,
+                     dh_final: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Gradients of ``ssm_scan_ref`` from a zero state, by an explicit reverse
+    loop (not autograd).
+
+    dy: (B, T, D) the cotangent of y; dh_final: (B, D, S) that of h_final
+    (zeros when None). Everything is f32 on the widened inputs. With
+    ``a = -exp(a_log)``, ``ā_t = exp(dt_t a)`` and ``g`` the adjoint of h,
+    walking t from T-1 down to 0::
+
+        g_t = dy_t C_t + ā_{t+1} g_{t+1}        (g_{T-1} = dh_final + dy C)
+        du_t  = dt_t Σ_s g_t B_t + D dy_t
+        ddt_t = Σ_s g_t (a ā_t h_{t-1} + u_t B_t)
+        dB_t  = Σ_d g_t dt_t u_t                dC_t = Σ_d dy_t h_t
+        da_log = a Σ_{b,t} g_t dt_t ā_t h_{t-1}   dD = Σ_{b,t} dy_t u_t
+
+    Returns (du, ddt, dB, dC, da_log, dD): the first four in u's dtype, the
+    last two in a_log's, each rounded once from f32.
+    """
+    bsz, t, d = u.shape
+    a = -torch.exp(a_log.float())
+    uf, dtf, bf, cf = u.float(), dt.float(), b_in.float(), c_in.float()
+    dyf = dy.float()
+    h = u.new_zeros((bsz, d, b_in.shape[-1]), dtype=torch.float32)
+    hs = []                                  # h_t for every step
+    for i in range(t):
+        dti = dtf[:, i, :, None]
+        h = torch.exp(dti * a) * h + (dti * uf[:, i, :, None]) * bf[:, i, None, :]
+        hs.append(h)
+    carry = (torch.zeros_like(h) if dh_final is None else dh_final.float())
+    du, ddt = torch.empty_like(uf), torch.empty_like(uf)
+    db, dc = torch.empty_like(bf), torch.empty_like(bf)
+    da = torch.zeros_like(a)
+    for i in reversed(range(t)):
+        dti, ui = dtf[:, i, :, None], uf[:, i, :, None]
+        bi, ci = bf[:, i, None, :], cf[:, i, None, :]
+        a_bar = torch.exp(dti * a)
+        h_prev = hs[i - 1] if i else torch.zeros_like(h)
+        g = dyf[:, i, :, None] * ci + carry
+        q = g * a_bar * h_prev
+        du[:, i] = dti[..., 0] * (g * bi).sum(-1)
+        ddt[:, i] = (a * q + g * ui * bi).sum(-1)
+        db[:, i] = (g * dti * ui).sum(1)
+        dc[:, i] = (dyf[:, i, :, None] * hs[i]).sum(1)
+        da += (dti * q).sum(0)
+        carry = a_bar * g
+    du += dyf * d_skip.float()
+    dd = (dyf * uf).sum((0, 1))
+    return (du.to(u.dtype), ddt.to(dt.dtype), db.to(b_in.dtype),
+            dc.to(c_in.dtype), (a * da).to(a_log.dtype), dd.to(d_skip.dtype))
+
+
 def _attention_mask(tq: int, tk: int, causal: bool, window: Optional[int],
                     device) -> torch.Tensor:
     """(tq, tk) bool: key k is live for query q. When Tq != Tk the query

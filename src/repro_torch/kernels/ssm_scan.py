@@ -45,7 +45,8 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b_in: torch.Tensor,
     args = (u, dt, b_in, c_in, a_log, d_skip)
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
         raise NotImplementedError(
-            "K3 (the selective scan) has no backward yet (ROADMAP Queue 1 item 3)")
+            "the K3 wrapper is forward only; call kernels.ops.ssm_scan, whose "
+            "autograd Function (SelectiveScan) carries the gradient")
     if not (u.is_cuda and all(x.device == u.device for x in args)):
         raise ValueError("ssm_scan kernel needs every input on one CUDA device "
                          f"(got {[str(x.device) for x in args]})")

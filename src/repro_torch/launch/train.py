@@ -12,12 +12,15 @@ B parameters). The reference reads its batches through the host data plane
 through the device tier the reference names as its optional fetch: the
 reference's ``token_dataset`` placed as records in a ``DeviceStore``, each
 step's ``GlobalUniformSampler`` indices gathered by ``core.fetch`` and
-turned into tokens by ``tokens_from_payload``. Only the ``dense`` family
-trains (``Model.loss``).
+turned into tokens by ``tokens_from_payload``. The ``dense``, ``ssm`` and
+``hybrid`` families train (``Model.loss``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
       --preset full --num-layers 12 --global-batch 4 --seq-len 2048 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+      --preset full --num-layers 24 --global-batch 4 --seq-len 2048 --steps 4 \\
+      --lr 3e-4         # at 1e-3 it diverges in its third step
 """
 from __future__ import annotations
 

@@ -10,7 +10,8 @@ Parameter names and layouts are the reference's (``in_proj (d, 2 di)``,
 
 The full-sequence scan goes through ``kernels.ops.ssm_scan``: the CUDA kernel
 on a card, the plain version on the CPU (the JAX models call their lax scan
-instead). Decode is the one-step recurrence on the carried state, as plain
+instead); under grad its backward is the scan's backward kernel (K3b) on a
+card, the plain reverse loop on the CPU. Decode is the one-step recurrence on the carried state, as plain
 tensor ops (``kernels.ref.ssm_scan_ref`` over one step from the cached h).
 """
 from __future__ import annotations

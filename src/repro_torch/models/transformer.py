@@ -15,8 +15,7 @@ sliding-window layers, ``max_len`` in global ones). A mamba layer's is
 hybrid layer's holds all four. ``decode_step`` writes the new position into
 the caches in place, where the reference returns updated copies.
 
-``loss`` is the training entry point (the ``dense`` family; the ssm and
-hybrid ones wait for a backward of the selective scan). The inference entry
+``loss`` is the training entry point of all three families. The inference entry
 points run under ``torch.no_grad``: they record no graph, whatever the
 caller's grad mode.
 """
@@ -169,13 +168,10 @@ class Model(nn.Module):
         (its activations are recomputed in backward, the reference's
         ``jax.checkpoint`` with ``nothing_saveable``); the CE of
         ``hidden[:, :-1]`` against ``tokens[:, 1:]`` takes ``cfg.loss_chunk``
-        tokens per chunk. ``aux`` is 0: the dense family has no router.
+        tokens per chunk. ``aux`` is 0: no ported family has a router. The
+        attention's gradient comes from ``ops.FlashAttention`` and the
+        selective scan's from ``ops.SelectiveScan``.
         """
-        if self.cfg.family != "dense":
-            raise NotImplementedError(
-                f"training the {self.cfg.family!r} family needs a backward of the "
-                "selective scan (K3), which is not written yet (ROADMAP Queue 1 "
-                "item 3); the 'dense' family trains")
         x = self._embed(tokens)
         cos, sin = self._rope(tokens.shape[0], 0, tokens.shape[1])
         for layer in self.layers:

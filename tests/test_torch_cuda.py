@@ -24,7 +24,12 @@ both sides before the tensor-core products, but the plain version takes S
 from bf16-rounded scores and the kernel from f32 accumulators, and 2^x by
 exp2f against exp); its LSE output within the forward's tolerance. A
 smoke model's loss and every gradient on the card in f32 match the CPU's
-within 1e-4.
+within 1e-4. The selective scan's backward kernel against
+``ssm_scan_bwd_ref``: every gradient within rtol 1e-4 in f32 and 1e-2 in
+bf16 (the bf16 outputs are rounded once from f32 on both sides, so they
+differ by one bf16 ulp, 2^-7 relative, at most), each with an atol of 1e-4
+of the tensor's largest magnitude (f32 sums over the states, the channels
+and the steps taken in another order, and 2^x by ex2.approx against exp).
 """
 import math
 
@@ -39,6 +44,7 @@ from repro_torch.kernels.dequant import dequant as dequant_kernel
 from repro_torch.kernels.flash_attn import flash_attention as flash_kernel
 from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd as flash_bwd_kernel
 from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
+from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd as ssm_bwd_kernel
 from repro_torch.models import build_model
 from repro_torch.serve.serve_step import generate
 
@@ -267,6 +273,105 @@ def test_ssm_scan_kernel_refuses_bad_input(cuda):
     assert ssm_kernel.launches == before
 
 
+SSM_BWD_SHAPES = [
+    # b, t, d, s
+    (2, 64, 64, 16),
+    (1, 100, 200, 5),       # ragged T (not a multiple of 16) and D (of 64); S < 16
+    (2, 33, 3200, 16),      # hymba's d_inner
+    (1, 1, 8, 16),          # one step
+    (1, 517, 70, 1),        # many chunks, S = 1
+    (2, 50, 77, 16),        # D not a multiple of 8
+]
+
+
+def _close_bwd(got, want, dtype):
+    names = ("du", "ddt", "dB", "dC", "da_log", "dD")
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        scale = max(1.0, w.float().abs().max().item())
+        rtol = 1e-4 if g.dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=1e-4 * scale,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("b,t,d,s", SSM_BWD_SHAPES)
+@pytest.mark.parametrize("dtype,param_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("seed_h", [False, True], ids=["dh0", "dh"])
+def test_ssm_scan_bwd_kernel_vs_plain(cuda, b, t, d, s, dtype, param_dtype, seed_h):
+    args = _ssm_args(cuda, b, t, d, s, dtype, param_dtype)
+    gen = torch.Generator(cuda).manual_seed(1)
+    dy = torch.randn((b, t, d), generator=gen, device=cuda)
+    dh = torch.randn((b, d, s), generator=gen, device=cuda) if seed_h else None
+    before = ssm_bwd_kernel.launches
+    got = ssm_bwd_kernel(*args, dy, dh)
+    assert ssm_bwd_kernel.launches == before + 1
+    _close_bwd(got, ref.ssm_scan_bwd_ref(*args, dy, dh), dtype)
+    again = ssm_bwd_kernel(*args, dy, dh)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))     # the same bits
+
+
+@pytest.mark.parametrize("b,t,d,s", [(2, 300, 200, 16), (1, 100, 77, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_bwd_kernel_exp_underflow(cuda, b, t, d, s, dtype):
+    # trained-like dt (up to 10): ā = exp(dt a) underflows to 0 for most
+    # states, where the recurrence cannot be inverted
+    args = _ssm_args(cuda, b, t, d, s, dtype, torch.float32, dt_max=10.0)
+    args[4][:, 0] = math.log(200.0)
+    gen = torch.Generator(cuda).manual_seed(2)
+    dy = torch.randn((b, t, d), generator=gen, device=cuda)
+    dh = torch.randn((b, d, s), generator=gen, device=cuda)
+    got = ssm_bwd_kernel(*args, dy, dh)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _close_bwd(got, ref.ssm_scan_bwd_ref(*args, dy, dh), dtype)
+
+
+def test_ssm_scan_bwd_kernel_refuses_bad_input(cuda):
+    args = _ssm_args(cuda, 1, 8, 16, 16, torch.bfloat16, torch.float32)
+    dy = torch.zeros((1, 8, 16), device=cuda)
+    before = ssm_bwd_kernel.launches
+    with pytest.raises(ValueError, match="dtype"):
+        ssm_bwd_kernel(*args, dy.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="dtype"):
+        ssm_bwd_kernel(args[0].float(), *args[1:], dy)
+    with pytest.raises(ValueError, match="shapes"):
+        ssm_bwd_kernel(*args, dy[:, :4].contiguous())
+    with pytest.raises(ValueError, match="shapes"):
+        ssm_bwd_kernel(*args, dy, torch.zeros((1, 16, 8), device=cuda))
+    with pytest.raises(ValueError, match="S must be"):
+        wide = torch.zeros((1, 8, 17), device=cuda, dtype=torch.bfloat16)
+        ssm_bwd_kernel(*args[:2], wide, wide, torch.zeros((16, 17), device=cuda),
+                       args[5], dy)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_bwd_kernel(*args, dy.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(8 * 16 + 1, device=cuda)
+        ssm_bwd_kernel(*args, flat[1:].view(1, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_bwd_kernel(*args, dy.cpu())
+    assert ssm_bwd_kernel.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_autograd_on_card_matches_cpu(cuda, dtype):
+    args = _ssm_args(cuda, 2, 70, 96, 16, dtype, torch.float32)
+    gen = torch.Generator(cuda).manual_seed(3)
+    dy = torch.randn((2, 70, 96), generator=gen, device=cuda)
+    dh = torch.randn((2, 96, 16), generator=gen, device=cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs = [x.detach().to(dev).requires_grad_() for x in args]
+        before = (ssm_kernel.launches, ssm_bwd_kernel.launches)
+        y, h = ops.ssm_scan(*xs)
+        ((y * dy.to(dev)).sum() + (h * dh.to(dev)).sum()).backward()
+        if dev.type == "cuda":       # K3 forward and K3b backward, once each
+            assert (ssm_kernel.launches - before[0],
+                    ssm_bwd_kernel.launches - before[1]) == (1, 1)
+        grads.append([x.grad.cpu() for x in xs])
+    _close_bwd(*grads, dtype)
+
+
 def test_kernels_skip_empty_inputs(cuda):
     before = (dequant_kernel.launches, flash_kernel.launches, ssm_kernel.launches)
     got = ops.dequant(torch.zeros((0, 256), dtype=torch.int8, device=cuda),
@@ -421,6 +526,41 @@ def test_serving_saves_nothing_and_launches_no_backward(cuda):
                         requires_grad=True) for n in (4, 2))
     with torch.inference_mode():
         assert ops.attention(q, k, k).grad_fn is None
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_and_hybrid_loss_on_card_matches_cpu(cuda, arch):
+    cfg = get_smoke(arch).scaled(dtype="float32", loss_chunk=64)
+    assert cfg.remat
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32))
+    before = (ssm_kernel.launches, ssm_bwd_kernel.launches)
+    lc, _ = card.loss(toks.to(cuda))
+    lc.backward()
+    # the forward, its recompute under remat, and one backward per layer
+    assert (ssm_kernel.launches - before[0], ssm_bwd_kernel.launches - before[1]) \
+        == (2 * cfg.num_layers, cfg.num_layers)
+    lp, _ = cpu.loss(toks)
+    lp.backward()
+    torch.testing.assert_close(lc.detach().cpu(), lp.detach(), rtol=1e-4, atol=1e-4)
+    want = dict(cpu.named_parameters())
+    for n, p in card.named_parameters():
+        torch.testing.assert_close(p.grad.cpu(), want[n].grad, rtol=1e-4, atol=1e-4,
+                                   msg=n)
+
+
+def test_ssm_serving_launches_no_backward(cuda):
+    cfg = get_smoke("hymba-1.5b").scaled(remat=False)
+    model = build_model(cfg, device=cuda).init(torch.Generator(cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda, dtype=torch.int32)
+    before = (ssm_kernel.launches, ssm_bwd_kernel.launches)
+    out = generate(model, toks, steps=4)
+    assert out.grad_fn is None
+    assert ssm_kernel.launches == before[0] + cfg.num_layers
+    assert ssm_bwd_kernel.launches == before[1]
 
 
 def test_model_loss_on_card_matches_cpu(cuda):

@@ -2,7 +2,11 @@
 selective scan, the causal conv, the Mamba-1 mixer and `launch.serve`.
 The falcon-mamba model as a whole (logits, prefill caches, decode steps,
 greedy tokens) is one of the parametrised archs of ``test_torch_model.py``;
-the CUDA kernel against the plain scan is in ``test_torch_cuda.py``.
+the CUDA kernel against the plain scan is in ``test_torch_cuda.py``. The
+scan's gradient: the plain backward (``ref.ssm_scan_bwd_ref``) against
+``jax.vjp`` of ``repro.models.mamba.selective_scan``, the scan JAX training
+differentiates, and ``ops.ssm_scan`` under grad against autograd through the
+plain forward.
 
 Tolerances: in f32 the port's plain scan agrees with the Pallas kernel (run in
 interpret mode) and with ``repro.kernels.ref.ssm_scan_ref`` within
@@ -12,7 +16,13 @@ the Pallas kernel within 1e-3, since both widen every input to f32 before
 any arithmetic, but only within 2e-2 with ``repro.kernels.ref``, which
 rounds ``dt * u`` to bf16 first: that is the one deliberate difference. The
 conv and the mixer in f32 agree within 1e-5 (the same ops; the reference's
-prefill scan is an associative scan, summed in another order).
+prefill scan is an associative scan, summed in another order). The scan's
+gradients in f32 agree within 1e-5 (the same arithmetic: the reference's
+autodiff of its associative scan against an explicit reverse loop, sums in
+another order); with bf16 inputs within 2e-2: both widen the inputs and
+work in f32, but the reference rounds du's two parts (through the scan and
+the skip) to bf16 apart and adds them in bf16, where the port rounds their
+f32 sum once, one bf16 ulp apart at most.
 """
 import jax
 import jax.numpy as jnp
@@ -24,9 +34,12 @@ from repro.configs import get_smoke as jax_get_smoke
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.models import mamba as jax_mamba
+from repro.models.mamba import selective_scan
 from repro.models.transformer import _mamba_prefill
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
+from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd as ssm_bwd_kernel
 from repro_torch.launch import serve
 from repro_torch.models import build_model
 from repro_torch.models.mamba import MambaMixer, causal_conv
@@ -91,6 +104,90 @@ def test_ssm_scan_plain_bf16_widens_before_the_product(rng):
     assert not np.array_equal(y.numpy(), np.asarray(jref[0]))
 
 
+def _grad_inputs(rng, b, t, d, s, dt_kind):
+    """Scan inputs with a per-(d, s) a_log and random D; dt as the model's
+    init draws it (softplus of a bias in [1e-3, 0.1]) or trained-like, up to
+    10, where ā = exp(dt a) underflows for most states."""
+    u, _, b_in, c_in, a_log, d_skip = _scan_inputs(rng, b, t, d, s)
+    a_log = (a_log + 0.1 * rng.standard_normal((d, s))).astype(np.float32)
+    if dt_kind == "init":
+        dt = np.exp(rng.random((b, t, d)) * 4.6 - 6.9).astype(np.float32)
+    else:
+        dt = (rng.random((b, t, d)) * 10).astype(np.float32)
+    return u, dt, b_in, c_in, a_log, d_skip
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seed_h", [False, True], ids=["dh0", "dh"])
+@pytest.mark.parametrize("dt_kind", ["init", "trained"])
+@pytest.mark.parametrize("b,t,d,s", [(2, 300, 12, 16),     # T past one 256 chunk
+                                     (1, 37, 8, 5),        # T below it, S < 16
+                                     (2, 260, 6, 1)])
+def test_ssm_scan_bwd_ref_vs_jax_vjp(rng, b, t, d, s, dt_kind, seed_h, dtype):
+    args = _grad_inputs(rng, b, t, d, s, dt_kind)
+    dy = rng.standard_normal((b, t, d)).astype(np.float32)
+    dh = (rng.standard_normal((b, d, s)) if seed_h else np.zeros((b, d, s))
+          ).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    jargs = [jnp.asarray(x, jdt) for x in args[:4]] + [jnp.asarray(x) for x in args[4:]]
+    _, vjp = jax.vjp(selective_scan, *jargs)
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    tdt = getattr(torch, dtype)
+    targs = [torch.from_numpy(x).to(tdt) for x in args[:4]] + \
+        [torch.from_numpy(x) for x in args[4:]]
+    got = ref.ssm_scan_bwd_ref(*targs, torch.from_numpy(dy),
+                               torch.from_numpy(dh) if seed_h else None)
+    tol = MIXER if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    for name, g, w, x in zip(("du", "ddt", "dB", "dC", "da_log", "dD"), got, want,
+                             targs):
+        assert g.dtype == x.dtype and tuple(g.shape) == tuple(x.shape), name
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                   err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("use_h", [False, True], ids=["y", "y+h_final"])
+def test_ssm_scan_grad_vs_autograd_through_plain_forward(rng, use_h):
+    args = _grad_inputs(rng, 2, 40, 8, 16, "init")
+    dy = torch.from_numpy(rng.standard_normal((2, 40, 8)).astype(np.float32))
+    dh = torch.from_numpy(rng.standard_normal((2, 8, 16)).astype(np.float32))
+    grads = []
+    for scan in (ops.ssm_scan, ref.ssm_scan_ref):
+        xs = [torch.from_numpy(x).requires_grad_() for x in args]
+        y, h = scan(*xs)
+        loss = (y * dy).sum() + ((h * dh).sum() if use_h else 0)
+        loss.backward()
+        grads.append([x.grad for x in xs])
+    assert type(y.grad_fn).__name__ != "SelectiveScanBackward"    # ref: autograd
+    for name, g, w in zip(("du", "ddt", "dB", "dC", "da_log", "dD"), *grads):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name, **MIXER)
+
+
+def test_ssm_scan_under_grad_runs_the_autograd_function(rng):
+    xs = [torch.from_numpy(x).requires_grad_() for x in _scan_inputs(rng, 1, 6, 4, 2)]
+    y, h = ops.ssm_scan(*xs)
+    assert type(y.grad_fn).__name__ == "SelectiveScanBackward"
+    before = (ssm_kernel.launches, ssm_bwd_kernel.launches)
+    (y.sum() + h.sum()).backward()          # CPU tensors: the plain backward
+    assert (ssm_kernel.launches, ssm_bwd_kernel.launches) == before
+    assert all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in xs)
+    for ctx in (torch.no_grad(), torch.inference_mode()):
+        with ctx:
+            assert ops.ssm_scan(*xs)[0].grad_fn is None
+    with pytest.raises(ValueError, match="CUDA"):       # impl="kernel": no fallback
+        ops.ssm_scan(*xs, impl="kernel")
+
+
+def test_ssm_scan_bwd_kernel_refuses_cpu_tensors(rng):
+    args = [torch.from_numpy(x) for x in _scan_inputs(rng, 1, 6, 4, 2)]
+    dy = torch.zeros((1, 6, 4))
+    before = ssm_bwd_kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_bwd_kernel(*args, dy)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_bwd_kernel(*args, dy, torch.zeros((1, 4, 2)))
+    assert ssm_bwd_kernel.launches == before
+
+
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("t", [1, 2, 9])
 def test_causal_conv_vs_reference(rng, with_state, t):
@@ -120,7 +217,7 @@ def mixer_pair():
 
 
 @pytest.mark.parametrize("t", [2, 17])
-@torch.no_grad()          # the mixer's parameters are trainable; K3 has no backward
+@torch.no_grad()          # the inference entry points, as serving calls them
 def test_mixer_forward_prefill_decode_vs_reference(rng, mixer_pair, t):
     """T = 2 < K - 1 left-pads the conv tail, as the reference does."""
     jcfg, params, mixer = mixer_pair

@@ -1,7 +1,10 @@
 """Training of the port against the JAX reference on the CPU: attention
 gradients, chunked CE, ``Model.loss`` and its gradients, AdamW and its
 schedules, the train step with microbatches, checkpoints and resume, the
-launcher, and the refusals of what has no backward yet.
+launcher, and the refusals of what has no backward yet: for the dense
+family, and for the ssm (falcon-mamba-7b) and hybrid (hymba-1.5b) ones,
+whose selective scan JAX differentiates through its lax scan and the port
+through the plain backward (``ops.SelectiveScan``).
 
 Inputs come from numpy with a seed and go through both packages; JAX runs
 on the CPU. Tolerances:
@@ -18,7 +21,14 @@ on the CPU. Tolerances:
   * ``Model.loss`` in the default bf16 config: loss within 1e-2 and every
     gradient within 5 % of its tensor's largest magnitude (bf16 activations
     rounded at other places; the gradients of bf16 products differ by a few
-    bf16 ulps);
+    bf16 ulps). For the ssm and hybrid families every gradient within 10 %
+    normwise of the reference's bf16 gradient and elementwise within 10 %
+    of its largest magnitude of the reference's f32 gradient (the exact
+    arithmetic): the 5 % does not hold there for the reference itself, whose
+    own bf16 gradients stray up to 7.6 % of the max from its f32 ones on
+    the hymba smoke config (the mixer's dt_bias, d_skip and a_log gradients
+    are sums over every token of terms that largely cancel), and the port's
+    bf16 gradients are as far from the f32 ones as the reference's are;
   * AdamW and its schedules within 1e-6 (f32 arithmetic in the reference's
     order; the port takes the schedule and bias corrections in double);
   * the train step within 1e-5 (losses and parameters after three steps).
@@ -50,6 +60,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.data import GlobalUniformSampler, token_dataset
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd
+from repro_torch.kernels.ssm_scan import ssm_scan as ssm_scan_kernel
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax
@@ -64,6 +75,7 @@ F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 GRAD = dict(rtol=1e-4, atol=1e-4)
 DENSE = ["chatglm3-6b", "qwen2-72b", "qwen1.5-32b", "nemotron-4-15b"]
+SSM_HYBRID = ["falcon-mamba-7b", "hymba-1.5b"]
 
 
 def _np(x) -> np.ndarray:
@@ -230,7 +242,7 @@ def _loss_and_grads(jmodel, params, model, cfg, toks):
     return (jl, jm), (loss, metrics), got, want
 
 
-@pytest.mark.parametrize("case", DENSE + ["chatglm3-6b/swa"])
+@pytest.mark.parametrize("case", DENSE + ["chatglm3-6b/swa"] + SSM_HYBRID)
 def test_model_loss_and_grads_vs_reference(case):
     arch = case.split("/")[0]
     over = dict(dtype="float32", loss_chunk=16)            # CE in 3 chunks, ragged
@@ -258,8 +270,25 @@ def test_model_loss_bf16_default_config():
         assert err <= 0.05 * np.abs(w).max() + 1e-6, (name, err)
 
 
-def test_model_loss_remat_changes_nothing():
-    cfg = get_smoke("chatglm3-6b").scaled(dtype="float32")
+@pytest.mark.parametrize("arch", SSM_HYBRID)
+def test_model_loss_bf16_ssm_and_hybrid(arch):
+    jmodel, params, model, cfg = _pair(arch)                 # bf16 activations
+    assert cfg.dtype == "bfloat16" and cfg.remat
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    (jl, _), (loss, _), got, want = _loss_and_grads(jmodel, params, model, cfg, toks)
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-2, atol=1e-2)
+    jmodel32, params32, model32, cfg32 = _pair(arch, dtype="float32")
+    exact = _loss_and_grads(jmodel32, params32, model32, cfg32, toks)[3]
+    for name in want:
+        g, w, x = _np(got[name]), want[name].numpy(), exact[name].numpy()
+        norm = np.linalg.norm(g - w) / np.linalg.norm(w)
+        assert norm <= 0.1, (name, norm)
+        err = np.abs(g - x).max()
+        assert err <= 0.1 * np.abs(x).max() + 1e-6, (name, err)
+
+
+def _remat_changes_nothing(arch):
+    cfg = get_smoke(arch).scaled(dtype="float32")
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (2, 12)).astype(np.int32))
     grads = []
@@ -274,26 +303,32 @@ def test_model_loss_remat_changes_nothing():
         assert torch.equal(grads[0][1][n], grads[1][1][n]), n
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
-def test_model_loss_refuses_ssm_and_hybrid(arch):
-    model = build_model(get_smoke(arch), device="cpu").init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss(torch.zeros((1, 4), dtype=torch.int32))
+def test_model_loss_remat_changes_nothing():
+    _remat_changes_nothing("chatglm3-6b")
+
+
+@pytest.mark.parametrize("arch", SSM_HYBRID)
+def test_model_loss_remat_changes_nothing_ssm_and_hybrid(arch):
+    _remat_changes_nothing(arch)
 
 
 def test_ssm_scan_refuses_inputs_that_need_a_gradient():
+    # the K3 wrapper is forward only and refuses such inputs when called
+    # directly; ops.ssm_scan carries the gradient (SelectiveScan), and
+    # without grad it records nothing, as serving calls it
     u, bc = torch.zeros((1, 8, 4)), torch.zeros((1, 8, 2))
     a, d = torch.zeros((4, 2), requires_grad=True), torch.ones((4,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssm_scan(u, u, bc, bc, a, d)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ssm_scan_kernel(u, u, bc, bc, a, d)
     with torch.no_grad():
         y, _ = ops.ssm_scan(u, u, bc, bc, a, d)
     assert y.grad_fn is None
+    assert ops.ssm_scan(u, u, bc, bc, a, d)[0].grad_fn is not None
     mixer = MambaMixer(get_smoke("falcon-mamba-7b"), device="cpu", dtype=torch.float32)
     mixer.reset_parameters(torch.Generator().manual_seed(0))
     x = torch.zeros((1, 4, get_smoke("falcon-mamba-7b").d_model))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        mixer(x)                              # trainable parameters, grad mode on
+    mixer(x).sum().backward()                 # trainable parameters, grad mode on
+    assert all(p.grad is not None for p in mixer.parameters())
 
 
 # ---------------------------------------------------------------------------
@@ -388,10 +423,8 @@ def test_global_norm_matches_reference(rng):
 # train step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_train_step_matches_reference(microbatches):
-    over = dict(dtype="float32")
-    jmodel, params, model, cfg = _pair("chatglm3-6b", **over)
+def _train_step_vs_reference(arch, microbatches):
+    jmodel, params, model, cfg = _pair(arch, dtype="float32")
     kw = dict(lr=1e-3, eps=1e-4, warmup_steps=2, total_steps=3)   # eps: see above
     jstep = jax.jit(jax_ts.make_train_step(jmodel, jax_opt.OptimizerConfig(**kw),
                                            microbatches=microbatches))
@@ -409,6 +442,16 @@ def test_train_step_matches_reference(microbatches):
     want = params_from_jax(jax.tree.map(np.asarray, jstate.params), cfg)
     for n, p in state.params.items():
         np.testing.assert_allclose(p.detach().numpy(), want[n].numpy(), **F32, err_msg=n)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_matches_reference(microbatches):
+    _train_step_vs_reference("chatglm3-6b", microbatches)
+
+
+@pytest.mark.parametrize("arch", SSM_HYBRID)
+def test_train_step_ssm_and_hybrid_matches_reference(arch):
+    _train_step_vs_reference(arch, 1)
 
 
 def test_train_step_refuses_int8_sync_and_meshes():
@@ -470,8 +513,8 @@ def test_checkpoint_ignores_tmp_and_keep_prunes(rng, tmp_path):
         restore_checkpoint(d, _state(rng), step=1)
 
 
-def test_resume_gives_the_same_steps_as_never_stopping(tmp_path):
-    cfg = get_smoke("chatglm3-6b")
+def _resume_matches_never_stopping(tmp_path, arch):
+    cfg = get_smoke(arch)
     kw = dict(steps=4, global_batch=4, seq_len=16, num_samples=12, device="cpu",
               log=lambda s: None)
     ck = str(tmp_path / "ck")
@@ -487,20 +530,36 @@ def test_resume_gives_the_same_steps_as_never_stopping(tmp_path):
         assert torch.equal(p, resumed["state"].params[n]), n
 
 
-def test_train_main_on_cpu(capsys):
-    out = launch_train.main(["--device", "cpu", "--arch", "chatglm3-6b", "--steps", "3",
+def test_resume_gives_the_same_steps_as_never_stopping(tmp_path):
+    _resume_matches_never_stopping(tmp_path, "chatglm3-6b")
+
+
+@pytest.mark.parametrize("arch", SSM_HYBRID)
+def test_resume_ssm_and_hybrid_gives_the_same_steps(tmp_path, arch):
+    _resume_matches_never_stopping(tmp_path, arch)
+
+
+def _train_main(capsys, arch):
+    out = launch_train.main(["--device", "cpu", "--arch", arch, "--steps", "3",
                              "--global-batch", "4", "--seq-len", "16",
                              "--num-samples", "16"])
     hist = out["history"]
     assert [r["step"] for r in hist] == [1, 2, 3]
     assert all(np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in hist)
-    assert "done: chatglm3-6b on cpu, 2 layers, 3 steps" in capsys.readouterr().out
+    layers = get_smoke(arch).num_layers
+    assert f"done: {arch} on cpu, {layers} layers, 3 steps" in capsys.readouterr().out
 
 
-def test_train_refuses_cpu_fallback_and_other_families(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_train.run(get_smoke("falcon-mamba-7b"), steps=1, global_batch=2,
-                         seq_len=8, num_samples=4, device="cpu")
+def test_train_main_on_cpu(capsys):
+    _train_main(capsys, "chatglm3-6b")
+
+
+@pytest.mark.parametrize("arch", SSM_HYBRID)
+def test_train_main_ssm_and_hybrid_on_cpu(capsys, arch):
+    _train_main(capsys, arch)
+
+
+def test_train_refuses_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_train.run(get_smoke("chatglm3-6b"), steps=1, global_batch=2,
