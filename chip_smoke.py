@@ -127,7 +127,7 @@ SERVED = ("chatglm3-6b", "falcon-mamba-7b", "hymba-1.5b")
 # width and depth, falcon-mamba-7b at full width and 24 of its 64 layers. At
 # the launcher's default lr of 1e-3 (warmed up over 2 steps) falcon-mamba-7b
 # diverges at its third step with K3b and with the plain backward alike
-# (scripts/ssm_train_check.py), so it trains at 3e-4
+# (PERF.md), so it trains at 3e-4, the reference optimizer's default
 TRAIN_RUNS = (("3k", "chatglm3-6b", 12, 1e-3), ("3l", "hymba-1.5b", 32, 1e-3),
               ("3m", "falcon-mamba-7b", 24, 3e-4))
 TRAIN_B, TRAIN_STEPS = 4, 4
@@ -170,8 +170,12 @@ def time_ms(fn, reps: int, windows: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, peak_flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / peak_flops * 1e3
+def bound(nbytes: float, flops: float, peak_flops: float, mufu_ms: float = 0.0):
+    """The least time (ms) for the work: its bytes at the memory rate, its
+    arithmetic at ``peak_flops`` (an FMA counts 2) and, apart, the
+    special-function unit's floor for its exps, whichever is largest."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = max(flops / peak_flops * 1e3, mufu_ms)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -973,15 +977,16 @@ def kernel_rows(dev, out: dict, by_path: dict):
     args16 = [x.to(torch.bfloat16) for x in k3_inputs(dev, gen, K3_SHAPE, False)]
     nbytes = (sum(x.numel() * x.element_size() for x in args16)
               + 4 * (b3 * t3 * d3 + b3 * d3 * s3))
-    # per (b, t, d, s): dt*A', exp, FMA into h, (dt*u)*B, FMA into y;
-    # per (b, t, d): dt*u, D*u and its add
-    ops_count = 7 * b3 * t3 * d3 * s3 + 3 * b3 * t3 * d3
-    b_ms, b_by = bound(nbytes, ops_count, PEAK_F32_FLOPS)
     k3_ms = time_ms(lambda: ssm_scan(*args16), 10)
     mhz = sm_clock_under(lambda: ssm_scan(*args16))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # every exp on the special-function unit: 16 a clock per SM
+    # one exp an update, on the special-function unit: 16 a clock per SM
     mufu_ms = b3 * t3 * d3 * s3 / (16 * sms * mhz * 1e6) * 1e3
+    # f32 arithmetic, an FMA counted 2, the exp left to the MUFU floor: per
+    # (b, t, d, s) dt*a, (dt*u)*B, the FMA into h and the FMA into y (6); per
+    # (b, t, d) dt*u and the FMA of D*u into y (3)
+    ops_count = 6 * b3 * t3 * d3 * s3 + 3 * b3 * t3 * d3
+    b_ms, b_by = bound(nbytes, ops_count, PEAK_F32_FLOPS, mufu_ms)
     hy = [x.to(torch.bfloat16) for x in k3_inputs(dev, gen, K3_HYMBA, False)]
     hy_err = max((g - w).abs().max().item()
                  for g, w in zip(ssm_scan(*hy), ref.ssm_scan_ref(*hy)))
@@ -1001,6 +1006,7 @@ def kernel_rows(dev, out: dict, by_path: dict):
         max_abs_err=max(errs.values()), ms=k3_ms,
         plain_ms=time_ms(lambda: ref.ssm_scan_ref(*args16), 1, windows=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, bound_share=b_ms / k3_ms,
+        bytes_ms=nbytes / PEAK_BYTES_S * 1e3, f32_ops_ms=ops_count / PEAK_F32_FLOPS * 1e3,
         mufu_floor_ms=mufu_ms, sm_clock_mhz=mhz, hymba_ms=hy_ms,
         odd_d_ms=od_ms, ms_after_odd_d=k3_ms2, sass=k3_sass()))
     del args16
@@ -1015,13 +1021,15 @@ def kernel_rows(dev, out: dict, by_path: dict):
     args, dy, dh = k3b.pop((K3_SHAPE, "init-like"))["args"]
     nbytes = (sum(x.numel() * x.element_size() for x in args) * 2   # in and out
               + 4 * (dy.numel() + dh.numel()))
-    # per (b, t, d, s), counted as the arithmetic needs it once: the states
-    # (dt*A, exp, (dt*u)*B, the FMA into h: 5), the adjoint (dy*C + carry,
-    # g*ā*h_{t-1}, g*B, a*q + u*gB, g*(dt*u), dy*h, dt*q into da_log, ā*g:
-    # 13) and the four sums over S or D (4); per (b, t, d): dt*ΣgB + D*dy
-    # and dy*u into dD (4)
-    ops_count = 22 * b3 * t3 * d3 * s3 + 4 * b3 * t3 * d3
-    b_ms, b_by = bound(nbytes, ops_count, PEAK_F32_FLOPS)
+    # the least f32 arithmetic the gradient needs, an FMA counted 2, the exp
+    # (one an update) left to the MUFU floor. Per (b, t, d, s), 18: the state
+    # dt*a, (dt*u)*B, p = ā*h_{t-1} and h = p + (dt*u)*B (4); the adjoint
+    # g = dy*C + ā_{t+1}*g_{t+1} (3); FMAs of dy*h into dC, g*(dt*u) into dB
+    # and g*B into Σ_s gB (6); q = g*p, then FMAs of a*q into ddt and dt*q
+    # into da_log (5). Per (b, t, d), 8: dt*u (1), du = dt*Σ_s gB + D*dy (3),
+    # ddt += u*Σ_s gB (2), dD += dy*u (2)
+    ops_count = 18 * b3 * t3 * d3 * s3 + 8 * b3 * t3 * d3
+    b_ms, b_by = bound(nbytes, ops_count, PEAK_F32_FLOPS, mufu_ms)
     k3b_ms = time_ms(lambda: ssm_scan_bwd(*args, dy, dh), 5)
     hy_args, hy_dy, hy_dh = k3b[(K3_HYMBA, "init-like")].pop("args")
     k3b_hy_ms = time_ms(lambda: ssm_scan_bwd(*hy_args, hy_dy, hy_dh), 5)
@@ -1036,7 +1044,8 @@ def kernel_rows(dev, out: dict, by_path: dict):
         ms=k3b_ms,
         plain_ms=time_ms(lambda: ref.ssm_scan_bwd_ref(*args, dy, dh), 1, windows=2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, bound_share=b_ms / k3b_ms,
-        bytes_ms=nbytes / PEAK_BYTES_S * 1e3, mufu_floor_ms=mufu_ms,
+        bytes_ms=nbytes / PEAK_BYTES_S * 1e3, f32_ops_ms=ops_count / PEAK_F32_FLOPS * 1e3,
+        mufu_floor_ms=mufu_ms,
         mufu_floor_two_exps_ms=2 * mufu_ms, hymba_ms=k3b_hy_ms, max_abs_errs=k3b_errs))
     del args, dy, dh
     by = {r["name"]: r for r in rows}
@@ -1051,8 +1060,10 @@ def kernel_rows(dev, out: dict, by_path: dict):
               "ssm_scan": f"B,T,D,S={list(K3_SHAPE)} bf16 in, f32 out, tol "
                           f"rtol=atol=1e-4; max_abs_err "
                           f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; "
-                          f"{by['ssm_scan']['bound_share']:.3f} of the bound; MUFU floor "
-                          f"{mufu_ms:.4f} ms at {mhz:.0f} MHz under load; at "
+                          f"{by['ssm_scan']['bound_share']:.3f} of the bound (bytes "
+                          f"{by['ssm_scan']['bytes_ms']:.4f} ms, f32 arithmetic "
+                          f"{by['ssm_scan']['f32_ops_ms']:.4f} ms, MUFU floor "
+                          f"{mufu_ms:.4f} ms at {mhz:.0f} MHz under load); at "
                           f"hymba's B,T,D,S={list(K3_HYMBA)} {hy_ms:.4f} ms "
                           f"(max_abs_err {hy_err:.3g}); at D={K3_ODD[2]} "
                           f"(element-wise staging) {od_ms:.4f} ms (max_abs_err "
@@ -1061,9 +1072,10 @@ def kernel_rows(dev, out: dict, by_path: dict):
               "ssm_scan_bwd": f"B,T,D,S={list(K3_SHAPE)} bf16 in, f32 dy and dh_final "
                               f"(falcon-mamba-7b's training shape), deterministic; "
                               f"{by['ssm_scan_bwd']['bound_share']:.3f} of the bound "
-                              f"(bytes alone {by['ssm_scan_bwd']['bytes_ms']:.4f} ms); "
-                              f"MUFU floor one exp an update {mufu_ms:.4f} ms, two "
-                              f"(as this design takes them) {2 * mufu_ms:.4f} ms; "
+                              f"(bytes {by['ssm_scan_bwd']['bytes_ms']:.4f} ms, f32 "
+                              f"arithmetic {by['ssm_scan_bwd']['f32_ops_ms']:.4f} ms, "
+                              f"MUFU floor one exp an update {mufu_ms:.4f} ms; two "
+                              f"exps, as this design takes them, {2 * mufu_ms:.4f} ms); "
                               f"max_abs_err {k3b_errs}; at hymba's "
                               f"B,T,D,S={list(K3_HYMBA)} {k3b_hy_ms:.4f} ms",
               "flash_attention_bwd": f"B,T,H,KV,dh={[B, T, H, KV, DH]} bf16 causal (chatglm3-6b's "

@@ -1,10 +1,10 @@
 """Training of the port against the JAX reference on the CPU: attention
 gradients, chunked CE, ``Model.loss`` and its gradients, AdamW and its
 schedules, the train step with microbatches, checkpoints and resume, the
-launcher, and the refusals of what has no backward yet: for the dense
-family, and for the ssm (falcon-mamba-7b) and hybrid (hymba-1.5b) ones,
-whose selective scan JAX differentiates through its lax scan and the port
-through the plain backward (``ops.SelectiveScan``).
+launcher, for the dense family and for the ssm (falcon-mamba-7b) and hybrid
+(hymba-1.5b) ones, whose selective scan JAX differentiates through its lax
+scan and the port through its plain backward (``ops.SelectiveScan``); and
+the refusals of what has no backward yet.
 
 Inputs come from numpy with a seed and go through both packages; JAX runs
 on the CPU. Tolerances:
@@ -19,16 +19,20 @@ on the CPU. Tolerances:
     (a few layers of f32 products summed in another order); CE with bf16
     logits within 1e-3 (see its test);
   * ``Model.loss`` in the default bf16 config: loss within 1e-2 and every
-    gradient within 5 % of its tensor's largest magnitude (bf16 activations
-    rounded at other places; the gradients of bf16 products differ by a few
-    bf16 ulps). For the ssm and hybrid families every gradient within 10 %
-    normwise of the reference's bf16 gradient and elementwise within 10 %
-    of its largest magnitude of the reference's f32 gradient (the exact
-    arithmetic): the 5 % does not hold there for the reference itself, whose
-    own bf16 gradients stray up to 7.6 % of the max from its f32 ones on
-    the hymba smoke config (the mixer's dt_bias, d_skip and a_log gradients
-    are sums over every token of terms that largely cancel), and the port's
-    bf16 gradients are as far from the f32 ones as the reference's are;
+    gradient's largest error against the reference's bf16 gradient within
+    5 % of its tensor's largest magnitude (bf16 activations rounded at other
+    places; the gradients of bf16 products differ by a few bf16 ulps); the
+    port reads at most 4.7 % on falcon-mamba-7b. On hymba-1.5b it reads
+    14.6 % on layer 0's dt_bias and at most 9.5 % elsewhere, and the limit
+    is 15 %: the mixer's dt_bias, d_skip and a_log gradients are sums over
+    every token of terms that largely cancel, and the reference's own bf16
+    gradients stray up to 7.6 % from its f32 ones, the port's 8.5 %, on
+    different sides. So the ssm and hybrid families are also held to the
+    reference's f32 gradients (the exact arithmetic) just above the port's
+    readings: 6 % (reading 5.9 %) and 9 % (8.5 %). Rounding the scan's
+    per-state du and ddt terms to bf16 before their sum over S breaks both
+    archs' limits (5.4 %, 6.3 %; 15.1 %, 10.5 %); the scan's own bf16 test
+    in ``test_torch_ssm.py`` catches such roundings more sharply;
   * AdamW and its schedules within 1e-6 (f32 arithmetic in the reference's
     order; the port takes the schedule and bias corrections in double);
   * the train step within 1e-5 (losses and parameters after three steps).
@@ -258,36 +262,33 @@ def test_model_loss_and_grads_vs_reference(case):
         np.testing.assert_allclose(_np(got[name]), want[name].numpy(), err_msg=name, **GRAD)
 
 
-def test_model_loss_bf16_default_config():
-    jmodel, params, model, cfg = _pair("chatglm3-6b")       # bf16 activations
-    assert cfg.dtype == "bfloat16" and cfg.remat
-    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
-    (jl, _), (loss, _), got, want = _loss_and_grads(jmodel, params, model, cfg, toks)
-    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-2, atol=1e-2)
-    for name in want:
-        w = want[name].numpy()
-        err = np.abs(_np(got[name]) - w).max()
-        assert err <= 0.05 * np.abs(w).max() + 1e-6, (name, err)
+# each gradient's largest error as a share of its tensor's largest magnitude:
+# against the reference's bf16 gradient, and (ssm, hybrid) against its f32 one
+BF16_LIMITS = {"chatglm3-6b": (0.05, None), "falcon-mamba-7b": (0.05, 0.06),
+               "hymba-1.5b": (0.15, 0.09)}
 
 
-@pytest.mark.parametrize("arch", SSM_HYBRID)
-def test_model_loss_bf16_ssm_and_hybrid(arch):
+@pytest.mark.parametrize("arch", list(BF16_LIMITS))
+def test_model_loss_bf16_default_config(arch):
     jmodel, params, model, cfg = _pair(arch)                 # bf16 activations
     assert cfg.dtype == "bfloat16" and cfg.remat
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
     (jl, _), (loss, _), got, want = _loss_and_grads(jmodel, params, model, cfg, toks)
     np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-2, atol=1e-2)
-    jmodel32, params32, model32, cfg32 = _pair(arch, dtype="float32")
-    exact = _loss_and_grads(jmodel32, params32, model32, cfg32, toks)[3]
+    vs_bf16, vs_f32 = BF16_LIMITS[arch]
+    exact = want if vs_f32 is None else _loss_and_grads(
+        *_pair(arch, dtype="float32"), toks)[3]
     for name in want:
         g, w, x = _np(got[name]), want[name].numpy(), exact[name].numpy()
-        norm = np.linalg.norm(g - w) / np.linalg.norm(w)
-        assert norm <= 0.1, (name, norm)
-        err = np.abs(g - x).max()
-        assert err <= 0.1 * np.abs(x).max() + 1e-6, (name, err)
+        err = np.abs(g - w).max()
+        assert err <= vs_bf16 * np.abs(w).max() + 1e-6, (name, err)
+        if vs_f32 is not None:
+            err = np.abs(g - x).max()
+            assert err <= vs_f32 * np.abs(x).max() + 1e-6, (name, err)
 
 
-def _remat_changes_nothing(arch):
+@pytest.mark.parametrize("arch", DENSE[:1] + SSM_HYBRID)
+def test_model_loss_remat_changes_nothing(arch):
     cfg = get_smoke(arch).scaled(dtype="float32")
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (2, 12)).astype(np.int32))
@@ -302,14 +303,6 @@ def _remat_changes_nothing(arch):
     for n in grads[0][1]:
         assert torch.equal(grads[0][1][n], grads[1][1][n]), n
 
-
-def test_model_loss_remat_changes_nothing():
-    _remat_changes_nothing("chatglm3-6b")
-
-
-@pytest.mark.parametrize("arch", SSM_HYBRID)
-def test_model_loss_remat_changes_nothing_ssm_and_hybrid(arch):
-    _remat_changes_nothing(arch)
 
 
 def test_ssm_scan_refuses_inputs_that_need_a_gradient():
@@ -423,7 +416,9 @@ def test_global_norm_matches_reference(rng):
 # train step
 # ---------------------------------------------------------------------------
 
-def _train_step_vs_reference(arch, microbatches):
+@pytest.mark.parametrize("arch,microbatches", [(DENSE[0], 1), (DENSE[0], 2)] +
+                         [(arch, 1) for arch in SSM_HYBRID])
+def test_train_step_matches_reference(arch, microbatches):
     jmodel, params, model, cfg = _pair(arch, dtype="float32")
     kw = dict(lr=1e-3, eps=1e-4, warmup_steps=2, total_steps=3)   # eps: see above
     jstep = jax.jit(jax_ts.make_train_step(jmodel, jax_opt.OptimizerConfig(**kw),
@@ -443,15 +438,6 @@ def _train_step_vs_reference(arch, microbatches):
     for n, p in state.params.items():
         np.testing.assert_allclose(p.detach().numpy(), want[n].numpy(), **F32, err_msg=n)
 
-
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_train_step_matches_reference(microbatches):
-    _train_step_vs_reference("chatglm3-6b", microbatches)
-
-
-@pytest.mark.parametrize("arch", SSM_HYBRID)
-def test_train_step_ssm_and_hybrid_matches_reference(arch):
-    _train_step_vs_reference(arch, 1)
 
 
 def test_train_step_refuses_int8_sync_and_meshes():
@@ -513,7 +499,8 @@ def test_checkpoint_ignores_tmp_and_keep_prunes(rng, tmp_path):
         restore_checkpoint(d, _state(rng), step=1)
 
 
-def _resume_matches_never_stopping(tmp_path, arch):
+@pytest.mark.parametrize("arch", DENSE[:1] + SSM_HYBRID)
+def test_resume_gives_the_same_steps_as_never_stopping(tmp_path, arch):
     cfg = get_smoke(arch)
     kw = dict(steps=4, global_batch=4, seq_len=16, num_samples=12, device="cpu",
               log=lambda s: None)
@@ -530,16 +517,9 @@ def _resume_matches_never_stopping(tmp_path, arch):
         assert torch.equal(p, resumed["state"].params[n]), n
 
 
-def test_resume_gives_the_same_steps_as_never_stopping(tmp_path):
-    _resume_matches_never_stopping(tmp_path, "chatglm3-6b")
 
-
-@pytest.mark.parametrize("arch", SSM_HYBRID)
-def test_resume_ssm_and_hybrid_gives_the_same_steps(tmp_path, arch):
-    _resume_matches_never_stopping(tmp_path, arch)
-
-
-def _train_main(capsys, arch):
+@pytest.mark.parametrize("arch", DENSE[:1] + SSM_HYBRID)
+def test_train_main_on_cpu(capsys, arch):
     out = launch_train.main(["--device", "cpu", "--arch", arch, "--steps", "3",
                              "--global-batch", "4", "--seq-len", "16",
                              "--num-samples", "16"])
@@ -549,14 +529,6 @@ def _train_main(capsys, arch):
     layers = get_smoke(arch).num_layers
     assert f"done: {arch} on cpu, {layers} layers, 3 steps" in capsys.readouterr().out
 
-
-def test_train_main_on_cpu(capsys):
-    _train_main(capsys, "chatglm3-6b")
-
-
-@pytest.mark.parametrize("arch", SSM_HYBRID)
-def test_train_main_ssm_and_hybrid_on_cpu(capsys, arch):
-    _train_main(capsys, arch)
 
 
 def test_train_refuses_cpu_fallback(monkeypatch):
