@@ -49,8 +49,9 @@ Phases, each of which raises on a failed check:
         24 K2 and 12 K2b launches a step, the loss and every parameter
         finite after each step and the loss falling; step time, tokens/s,
         the model-FLOP share of the bf16 peak, peak memory, a profile of a
-        fifth, warm step, and the device time of a sixth one's forward,
-        backward and AdamW update;
+        fifth, warm step (each kernel's time a call and share of busy), and
+        the device time of a sixth one's forward, backward and AdamW
+        update;
      l. the same for hymba-1.5b at full width and depth (32 layers): 64 K2,
         32 K2b, 64 K3 and 32 K3b launches a step;
      m. the same for falcon-mamba-7b at full width and 24 of its 64 layers:
@@ -69,9 +70,13 @@ Phases, each of which raises on a failed check:
      cuobjdump shows of its time loop (registers, spills, instructions and
      MUFU.EX2 per update); K3b against the plain backward at
      falcon-mamba-7b's training shape (init-like and trained-like inputs)
-     and hymba-1.5b's, bf16 inputs, f32 dy and a nonzero dh_final, the same
-     bits on two runs, its time beside its bound and the special-function-unit
-     floor; K2b against the plain backward at chatglm3-6b's training shape
+     and hymba-1.5b's, bf16 inputs, f32 dy and a nonzero dh_final, from
+     K3's checkpoints of h as training calls it, the same bits on two runs,
+     its time beside its bound and the special-function-unit floor at both
+     shapes and beside K3's with and without writing the checkpoints, its
+     launch plan's waves at the blocks an SM the card's occupancy calculator
+     gives, and what cuobjdump shows of its walk loop (instructions,
+     MUFU.EX2, shuffles and shared-memory accesses per update); K2b against the plain backward at chatglm3-6b's training shape
      and hymba-1.5b's, its time beside its bound, SDPA's
      backward and K2's with and without the LSE output, and the device
      time of its D pre-pass and main kernel apart; K2's LSE against
@@ -571,6 +576,7 @@ def train_full(dev, kernels: dict, tag: str, arch: str, layers: int,
     hist = out["history"]
     check(hist[-1]["loss"] < hist[0]["loss"],
           f"the loss fell over the {len(hist)} steps")
+    log(f"[{tag}] losses {[round(r['loss'], 4) for r in hist]}")
     warm = [r["step_s"] for r in hist[1:]]
     tokens = TRAIN_B * L_TOK
     params = out["model"].param_count()
@@ -609,11 +615,13 @@ def train_full(dev, kernels: dict, tag: str, arch: str, layers: int,
         for k in on_path:
             key = PROFILED_AS[k]
             k_ms[key] = sum(ms for n, ms in by_name.items() if key in n)
-        res["profile"] = dict(busy_share=share, busy_ms=busy_ms, kernel_ms=k_ms)
+        calls = {PROFILED_AS[k]: want[k] for k in on_path}
+        res["profile"] = dict(busy_share=share, busy_ms=busy_ms, kernel_ms=k_ms,
+                              kernel_ms_a_call={k: ms / calls[k] for k, ms in k_ms.items()})
         log(f"[{tag}] profile of one warm step: device busy {busy_ms:.2f} ms, "
             f"{share:.3f} of the kernel window (torch.profiler); "
-            + "; ".join(f"{k} {ms:.2f} ms = {ms / busy_ms:.3f} of busy"
-                        for k, ms in k_ms.items())
+            + "; ".join(f"{k} {ms:.2f} ms = {ms / busy_ms:.3f} of busy, {calls[k]} calls, "
+                        f"{ms / calls[k]:.4f} ms a call" for k, ms in k_ms.items())
             + f"; top kernels (name, ms): {[(n[:60], round(ms, 2)) for n, ms in top]}")
     res["phases_ms"] = step_phases(out)
     log(f"[{tag}] one more warm step by CUDA events (ms): " + ", ".join(
@@ -698,24 +706,23 @@ def sm_clock_under(fn, seconds: float = 1.5) -> float:
     return statistics.median(samples)
 
 
-def k3_sass() -> dict:
-    """What cuobjdump shows of K3's bf16 instance with 16-byte staging (D a
-    multiple of 8, as on the path): registers and local memory (spills) per
-    thread; in its time loop (the longest backward branch) the instructions
-    and MUFU.EX2 per state update, counting 16 updates per y store (STG); and
-    whether the chunk-ahead loads all come before the loop's first y store.
-    Empty where the library holds no such function: a reading, not a check."""
+def sass_loops(name: str, symbol: str, flags: str):
+    """What cuobjdump shows of the bf16 instance of kernel ``symbol`` in
+    library ``name`` whose mangled template flags read ``flags`` (``Lb1E``:
+    vector staging): ({registers, local_bytes}, its loops (the instructions
+    between a backward branch and its target), longest first). Empty where
+    the library holds no such function."""
     from repro_torch.kernels import _build
 
     cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    lib = str(_build.library_path("ssm_scan"))
+    lib = str(_build.library_path(name))
 
     def dump(flag: str) -> str:
         return subprocess.run([cuobjdump, flag, lib], capture_output=True,
                               text=True, timeout=120, check=True).stdout
 
-    def ours(fn: str) -> bool:       # ssm_scan_kernel<__nv_bfloat16, true>
-        return "ssm_scan_kernel" in fn and "bfloat16" in fn and "Lb1E" in fn
+    def ours(fn: str) -> bool:
+        return symbol in fn and f"bfloat16{flags}" in fn
 
     out = {}
     for m in re.finditer(r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+)"
@@ -726,12 +733,24 @@ def k3_sass() -> dict:
                  if ours(f.split()[0])), "")
     ins = [(int(a, 16), op) for a, op in
            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
-    loops = [(int(m[1], 16), a) for a, op in ins
-             if (m := re.search(r"BRA (0x[0-9a-f]+)", op)) and int(m[1], 16) < a]
+    spans = sorted(((int(m[1], 16), a) for a, op in ins
+                    if (m := re.search(r"BRA (0x[0-9a-f]+)", op)) and int(m[1], 16) < a),
+                   key=lambda p: p[0] - p[1])
+    return out, [[op for a, op in ins if lo <= a <= hi] for lo, hi in spans]
+
+
+def k3_sass() -> dict:
+    """What cuobjdump shows of K3's bf16 serving instance with 16-byte
+    staging (D a multiple of 8, as on the path; no checkpoints of h):
+    registers and local memory (spills) per
+    thread; in its time loop (the longest backward branch) the instructions
+    and MUFU.EX2 per state update, counting 16 updates per y store (STG); and
+    whether the chunk-ahead loads all come before the loop's first y store.
+    Empty where the library holds no such function: a reading, not a check."""
+    out, loops = sass_loops("ssm_scan", "ssm_scan_kernel", "Lb1ELb0E")
     if not loops:
         return out
-    lo, hi = max(loops, key=lambda p: p[1] - p[0])
-    loop = [op for a, op in ins if lo <= a <= hi]
+    loop = loops[0]
     stg = [i for i, op in enumerate(loop) if "STG" in op]
     if not stg:
         return out
@@ -743,9 +762,29 @@ def k3_sass() -> dict:
                                              enumerate(loop) if "LDG" in op))
 
 
-def k3b_run(ssm_scan_bwd, ref, dev, gen, shape, kind: str) -> dict:
-    """K3b against the plain backward (``ssm_scan_bwd_ref``) on bf16 inputs
-    drawn by ``k3_inputs``, a random f32 dy and a nonzero dh_final. The
+def k3b_sass() -> dict:
+    """What cuobjdump shows of K3b's bf16 instance with vector staging: its
+    registers and local memory, and per state update in its walk loop (one
+    chunk of 16 steps with the chunk's recompute, 4 updates a lane a step):
+    instructions, MUFU.EX2, shuffles, shared loads and stores, and the
+    shared and shuffle accesses in all. A reading, not a check."""
+    out, loops = sass_loops("ssm_scan_bwd", "ssm_scan_bwd_kernel", "Lb1E")
+    walk = next((lp for lp in loops if any("SHFL" in op for op in lp)), None)
+    if walk is None:
+        return out
+    kinds = {"instructions": "", "mufu_ex2": "MUFU.EX2", "shfl": "SHFL",
+             "lds": "LDS", "sts": "STS"}
+    for k, op in kinds.items():
+        out[f"{k}_per_update"] = sum(op in x for x in walk) / (16 * 4)
+    out["shared_and_shuffle_per_update"] = sum(out[f"{k}_per_update"]
+                                               for k in ("shfl", "lds", "sts"))
+    return out
+
+
+def k3b_run(ssm_scan, ssm_scan_bwd, ref, dev, gen, shape, kind: str) -> dict:
+    """K3b, from K3's checkpoints of h as training calls it, against the
+    plain backward (``ssm_scan_bwd_ref``) on bf16 inputs drawn by
+    ``k3_inputs``, a random f32 dy and a nonzero dh_final. The
     tolerance: du, ddt, dB and dC (bf16) within rtol 1e-2, one bf16 ulp (both
     sides round the same f32 value once, and f32 sums in another order can
     fall on either side of a rounding boundary); da_log and dD (f32) within
@@ -757,7 +796,8 @@ def k3b_run(ssm_scan_bwd, ref, dev, gen, shape, kind: str) -> dict:
             enumerate(k3_inputs(dev, gen, shape, trained=kind == "trained-like"))]
     dy = torch.randn((b, t, d), generator=gen, device=dev)
     dh = torch.randn((b, d, s), generator=gen, device=dev)
-    got = ssm_scan_bwd(*args, dy, dh)
+    ck = ssm_scan(*args, checkpoints=True)[2]
+    got = ssm_scan_bwd(*args, dy, dh, h_checkpoints=ck)
     want = ref.ssm_scan_bwd_ref(*args, dy, dh)
     errs = []
     for name, g, w in zip(("du", "ddt", "dB", "dC", "da_log", "dD"), got, want):
@@ -767,14 +807,14 @@ def k3b_run(ssm_scan_bwd, ref, dev, gen, shape, kind: str) -> dict:
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=1e-4 * scale)
         errs.append((g.float() - w.float()).abs().max().item())
     del want
-    again = ssm_scan_bwd(*args, dy, dh)
+    again = ssm_scan_bwd(*args, dy, dh, h_checkpoints=ck)
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
           f"K3b at {list(shape)} {kind}: two runs give the same bits")
     log(f"[4] ssm_scan_bwd at B,T,D,S={list(shape)} {kind}, bf16 in, f32 dy and "
-        f"dh_final: max_abs_err (du, ddt, dB, dC, da_log, dD) "
-        f"{[float(f'{e:.3g}') for e in errs]} (tol: bf16 rtol 1e-2, f32 rtol 1e-4, "
-        f"atol 1e-4 x max); two runs bit-equal")
-    return dict(max_abs_err=max(errs), args=(args, dy, dh))
+        f"dh_final, from K3's checkpoints: max_abs_err (du, ddt, dB, dC, da_log, "
+        f"dD) {[float(f'{e:.3g}') for e in errs]} (tol: bf16 rtol 1e-2, f32 rtol "
+        f"1e-4, atol 1e-4 x max); two runs bit-equal")
+    return dict(max_abs_err=max(errs), args=(args, dy, dh, ck))
 
 
 def flag_runs(flash_attention, ref, q, k, v, window) -> dict:
@@ -849,6 +889,7 @@ def kernel_rows(dev, out: dict, by_path: dict):
     from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd
     from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels import ssm_scan_bwd as k3b_plan
     from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd
 
     def launches(name: str) -> dict:
@@ -1017,23 +1058,52 @@ def kernel_rows(dev, out: dict, by_path: dict):
     k3b = {}
     for shape, kind in ((K3_SHAPE, "init-like"), (K3_SHAPE, "trained-like"),
                         (K3_HYMBA, "init-like")):
-        k3b[(shape, kind)] = k3b_run(ssm_scan_bwd, ref, dev, gen, shape, kind)
-    args, dy, dh = k3b.pop((K3_SHAPE, "init-like"))["args"]
-    nbytes = (sum(x.numel() * x.element_size() for x in args) * 2   # in and out
-              + 4 * (dy.numel() + dh.numel()))
-    # the least f32 arithmetic the gradient needs, an FMA counted 2, the exp
-    # (one an update) left to the MUFU floor. Per (b, t, d, s), 18: the state
-    # dt*a, (dt*u)*B, p = ā*h_{t-1} and h = p + (dt*u)*B (4); the adjoint
-    # g = dy*C + ā_{t+1}*g_{t+1} (3); FMAs of dy*h into dC, g*(dt*u) into dB
-    # and g*B into Σ_s gB (6); q = g*p, then FMAs of a*q into ddt and dt*q
-    # into da_log (5). Per (b, t, d), 8: dt*u (1), du = dt*Σ_s gB + D*dy (3),
-    # ddt += u*Σ_s gB (2), dD += dy*u (2)
-    ops_count = 18 * b3 * t3 * d3 * s3 + 8 * b3 * t3 * d3
-    b_ms, b_by = bound(nbytes, ops_count, PEAK_F32_FLOPS, mufu_ms)
-    k3b_ms = time_ms(lambda: ssm_scan_bwd(*args, dy, dh), 5)
-    hy_args, hy_dy, hy_dh = k3b[(K3_HYMBA, "init-like")].pop("args")
-    k3b_hy_ms = time_ms(lambda: ssm_scan_bwd(*hy_args, hy_dy, hy_dh), 5)
-    del hy_args, hy_dy, hy_dh
+        k3b[(shape, kind)] = k3b_run(ssm_scan, ssm_scan_bwd, ref, dev, gen, shape, kind)
+    args, dy, dh, ck = k3b.pop((K3_SHAPE, "init-like"))["args"]
+
+    def k3b_bound(shape):
+        """(bytes, f32 operations, MUFU floor ms, bound) of K3b at ``shape``
+        (bf16 u, dt, B, C and f32 a_log, d_skip read and their gradients
+        written, f32 dy and dh_final read). The operations are the least f32
+        arithmetic the gradient needs, an FMA counted 2, the exp (one an
+        update) left to the MUFU floor. Per (b, t, d, s), 18: the state
+        dt*a, (dt*u)*B, p = ā*h_{t-1} and h = p + (dt*u)*B (4); the adjoint
+        g = dy*C + ā_{t+1}*g_{t+1} (3); FMAs of dy*h into dC, g*(dt*u) into
+        dB and g*B into Σ_s gB (6); q = g*p, then FMAs of a*q into ddt and
+        dt*q into da_log (5). Per (b, t, d), 8: dt*u (1), du = dt*Σ_s gB +
+        D*dy (3), ddt += u*Σ_s gB (2), dD += dy*u (2)."""
+        b_, t_, d_, s_ = shape
+        nb = (2 * 2 * (2 * b_ * t_ * d_ + 2 * b_ * t_ * s_)
+              + 2 * 4 * (d_ * s_ + d_) + 4 * (b_ * t_ * d_ + b_ * d_ * s_))
+        ops = 18 * b_ * t_ * d_ * s_ + 8 * b_ * t_ * d_
+        mufu = b_ * t_ * d_ * s_ / (16 * sms * mhz * 1e6) * 1e3
+        return nb, ops, mufu, bound(nb, ops, PEAK_F32_FLOPS, mufu)
+
+    nbytes, ops_count, _, (b_ms, b_by) = k3b_bound(K3_SHAPE)
+    # K3b as training calls it, from K3's checkpoints, and K3 timed without
+    # and with writing them: under remat K3 runs twice a layer and writes
+    # them both times, so a layer's scan backward costs K3b plus twice the
+    # difference
+    k3b_ms = time_ms(lambda: ssm_scan_bwd(*args, dy, dh, h_checkpoints=ck), 5)
+    k3_ck_ms = [time_ms(lambda: ssm_scan(*args, checkpoints=c), 10) for c in (False, True)]
+    hy_args, hy_dy, hy_dh, hy_ck = k3b[(K3_HYMBA, "init-like")].pop("args")
+    k3b_hy_ms = time_ms(lambda: ssm_scan_bwd(*hy_args, hy_dy, hy_dh,
+                                             h_checkpoints=hy_ck), 5)
+    hy_k3_ck_ms = [time_ms(lambda: ssm_scan(*hy_args, checkpoints=c), 10)
+                   for c in (False, True)]
+    del hy_args, hy_dy, hy_dh, hy_ck, ck
+    layer_ms = {tag: k3b + 2 * (k3[1] - k3[0]) for tag, k3b, k3 in
+                (("falcon", k3b_ms, k3_ck_ms), ("hymba", k3b_hy_ms, hy_k3_ck_ms))}
+    _, _, hy_mufu_ms, (hy_b_ms, hy_b_by) = k3b_bound(K3_HYMBA)
+    # the launch plan: blocks, and the waves they take at the blocks an SM
+    # that the card's occupancy calculator gives for the path's instance
+    per_sm = k3b_plan.blocks_per_sm(in_bf16=True, vec=True)
+    plans = {tag: k3b_plan.plan(*shape) for tag, shape in
+             (("falcon", K3_SHAPE), ("hymba", K3_HYMBA))}
+    waves = {tag: dict(blocks=pl.blocks, blocks_per_sm=per_sm,
+                       warps_per_sm=per_sm * k3b_plan.WARPS,
+                       waves=pl.waves(sms, per_sm), planned_waves=pl.waves(sms))
+             for tag, pl in plans.items()}
     k3b_errs = {f"{'falcon' if sh == K3_SHAPE else 'hymba'} {kind}": r["max_abs_err"]
                 for (sh, kind), r in k3b.items()}
     rows.append(dict(
@@ -1045,8 +1115,13 @@ def kernel_rows(dev, out: dict, by_path: dict):
         plain_ms=time_ms(lambda: ref.ssm_scan_bwd_ref(*args, dy, dh), 1, windows=2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, bound_share=b_ms / k3b_ms,
         bytes_ms=nbytes / PEAK_BYTES_S * 1e3, f32_ops_ms=ops_count / PEAK_F32_FLOPS * 1e3,
-        mufu_floor_ms=mufu_ms,
-        mufu_floor_two_exps_ms=2 * mufu_ms, hymba_ms=k3b_hy_ms, max_abs_errs=k3b_errs))
+        mufu_floor_ms=mufu_ms, hymba_ms=k3b_hy_ms,
+        k3_ms_without_and_with_checkpoints=k3_ck_ms,
+        hymba_k3_ms_without_and_with_checkpoints=hy_k3_ck_ms,
+        with_k3_checkpoint_writes_ms=layer_ms,
+        hymba_bound_ms=hy_b_ms, hymba_bound_by=hy_b_by,
+        hymba_bound_share=hy_b_ms / k3b_hy_ms, hymba_mufu_floor_ms=hy_mufu_ms,
+        max_abs_errs=k3b_errs, waves=waves, sass=k3b_sass()))
     del args, dy, dh
     by = {r["name"]: r for r in rows}
     shapes = {"dequant": f"q {[n, f]} int8 -> bf16",
@@ -1070,14 +1145,23 @@ def kernel_rows(dev, out: dict, by_path: dict):
                           f"{od_err:.3g}), then at D={d3} again {k3_ms2:.4f} ms; "
                           f"SASS {by['ssm_scan']['sass']}",
               "ssm_scan_bwd": f"B,T,D,S={list(K3_SHAPE)} bf16 in, f32 dy and dh_final "
-                              f"(falcon-mamba-7b's training shape), deterministic; "
+                              f"(falcon-mamba-7b's training shape), from K3's "
+                              f"checkpoints, deterministic; "
                               f"{by['ssm_scan_bwd']['bound_share']:.3f} of the bound "
                               f"(bytes {by['ssm_scan_bwd']['bytes_ms']:.4f} ms, f32 "
                               f"arithmetic {by['ssm_scan_bwd']['f32_ops_ms']:.4f} ms, "
-                              f"MUFU floor one exp an update {mufu_ms:.4f} ms; two "
-                              f"exps, as this design takes them, {2 * mufu_ms:.4f} ms); "
-                              f"max_abs_err {k3b_errs}; at hymba's "
-                              f"B,T,D,S={list(K3_HYMBA)} {k3b_hy_ms:.4f} ms",
+                              f"MUFU floor of one exp an update, as this design "
+                              f"takes them, {mufu_ms:.4f} ms); max_abs_err "
+                              f"{k3b_errs}; K3 without / with writing the "
+                              f"checkpoints {k3_ck_ms[0]:.4f} / {k3_ck_ms[1]:.4f} ms; "
+                              f"at hymba's B,T,D,S={list(K3_HYMBA)} {k3b_hy_ms:.4f} ms, "
+                              f"bound {hy_b_ms:.4f} ms ({hy_b_by}), "
+                              f"{by['ssm_scan_bwd']['hymba_bound_share']:.3f} of it, MUFU "
+                              f"floor {hy_mufu_ms:.4f} ms, K3 without / with "
+                              f"{hy_k3_ck_ms[0]:.4f} / {hy_k3_ck_ms[1]:.4f} ms; a "
+                              f"layer's K3b plus K3's two checkpoint writes under "
+                              f"remat {layer_ms}; blocks and waves {waves}; SASS "
+                              f"{by['ssm_scan_bwd']['sass']}",
               "flash_attention_bwd": f"B,T,H,KV,dh={[B, T, H, KV, DH]} bf16 causal (chatglm3-6b's "
                                      f"training shape), tol rtol=atol=2e-2, deterministic; "
                                      f"{by['flash_attention_bwd']['tflops']:.1f} TFLOP/s, "

@@ -36,6 +36,11 @@
 //     under each load; B and C of a step, which every channel of the batch
 //     row shares, are staged with them and read as broadcasts. Warps sync
 //     only with themselves. A warp's y store writes 128 neighbouring bytes.
+// Under grad (CKPT) the kernel also writes h after every CKH-th step that a
+// step follows, the 16 states of a (batch row, channel) in state order, for
+// the backward (csrc/ssm_scan_bwd.cu), which recomputes the states between
+// them: 4 16-byte stores a lane every 8 steps, beside the per-step y
+// stores. The serving instance (CKPT false) is the same code without them.
 // States past S have A = B = C = 0, so they stay 0 and add nothing: any
 // S <= 16 runs. Channels past D, and steps past T (staged as dt = u = 0, so
 // h is kept exactly), are computed but not stored.
@@ -54,6 +59,8 @@ constexpr int MAXS = 16;                 // states per channel = largest S
 constexpr int THREADS = 128;             // one channel per thread
 constexpr int WARPS = THREADS / 32;
 constexpr int TC = 16;                   // time steps per chunk
+constexpr int CKH = 8;                   // steps between checkpoints of h (CKPT)
+static_assert(TC % CKH == 0, "checkpoints fall inside a chunk");
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -80,6 +87,15 @@ __device__ __forceinline__ void store_if(float* p, float v, bool ok) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n @p st.global.f32 [%0], %1;\n}"
       :: "l"(p), "f"(v), "r"((int)ok));
+}
+
+// the four floats at p where ok, one predicated 16-byte store
+__device__ __forceinline__ void store4_if(float* p, float a, float b, float c,
+                                          float d, bool ok) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %5, 0;\n"
+      " @p st.global.v4.f32 [%0], {%1, %2, %3, %4};\n}"
+      :: "l"(p), "f"(a), "f"(b), "f"(c), "f"(d), "r"((int)ok));
 }
 
 // Loads of the chunk ahead, as volatile asm and without .nc, so that neither
@@ -135,13 +151,13 @@ struct Vec {
 // is staged with 16-byte loads; otherwise element by element. The path needs
 // two blocks an SM; asking for three caps registers at 170, under which ptxas
 // schedules the time loop with fewer stall cycles than with no cap.
-template <typename In, bool VEC>
+template <typename In, bool VEC, bool CKPT>
 __global__ void __launch_bounds__(THREADS, 3)
 ssm_scan_kernel(const In* __restrict__ u, const In* __restrict__ dt,
                 const In* __restrict__ b_in, const In* __restrict__ c_in,
                 const void* __restrict__ a_log, const void* __restrict__ d_skip,
-                float* __restrict__ y, float* __restrict__ h_out, int T, int D,
-                int S, bool param_bf16) {
+                float* __restrict__ y, float* __restrict__ h_out,
+                float* __restrict__ ck, int T, int D, int S, bool param_bf16) {
   // per warp and step of a chunk: (u, dt) of each channel, and B then C
   // (zero past S), widened to f32; two chunks, one read while the other is
   // filled
@@ -260,6 +276,16 @@ ssm_scan_kernel(const In* __restrict__ u, const In* __restrict__ dt,
         }
       }
       store_if(yc + tt * D, yv, d_ok && tt < n);
+      if constexpr (CKPT) {
+        if (tt % CKH == CKH - 1) {         // checkpoint (t0 + tt + 1) / CKH - 1
+          float* dst = ck + (((int64_t)((t0 + tt + 1) / CKH - 1) * gridDim.y
+                              + blockIdx.y) * D + d) * MAXS;
+#pragma unroll
+          for (int q = 0; q < MAXS / 4; ++q)
+            store4_if(dst + 4 * q, h[4 * q], h[4 * q + 1], h[4 * q + 2],
+                      h[4 * q + 3], d_ok && tt + 1 < n);
+        }
+      }
     }
     stage(buf ^ 1);                      // read last in the previous chunk
     __syncwarp();
@@ -272,40 +298,54 @@ ssm_scan_kernel(const In* __restrict__ u, const In* __restrict__ dt,
   }
 }
 
-template <typename In>
+template <typename In, bool CKPT>
 void launch(const void* u, const void* dt, const void* b_in, const void* c_in,
             const void* a_log, const void* d_skip, float* y, float* h_out,
-            int B, int T, int D, int S, bool param_bf16, cudaStream_t st) {
+            float* ck, int B, int T, int D, int S, bool param_bf16,
+            cudaStream_t st) {
   const dim3 grid((D + THREADS - 1) / THREADS, B);
   const In *ui = static_cast<const In*>(u), *dti = static_cast<const In*>(dt),
            *bi = static_cast<const In*>(b_in), *ci = static_cast<const In*>(c_in);
   if (D % 8 == 0)
-    ssm_scan_kernel<In, true><<<grid, THREADS, 0, st>>>(
-        ui, dti, bi, ci, a_log, d_skip, y, h_out, T, D, S, param_bf16);
+    ssm_scan_kernel<In, true, CKPT><<<grid, THREADS, 0, st>>>(
+        ui, dti, bi, ci, a_log, d_skip, y, h_out, ck, T, D, S, param_bf16);
   else
-    ssm_scan_kernel<In, false><<<grid, THREADS, 0, st>>>(
-        ui, dti, bi, ci, a_log, d_skip, y, h_out, T, D, S, param_bf16);
+    ssm_scan_kernel<In, false, CKPT><<<grid, THREADS, 0, st>>>(
+        ui, dti, bi, ci, a_log, d_skip, y, h_out, ck, T, D, S, param_bf16);
 }
 
 }  // namespace
 
 // in_bf16: 1 if u, dt, B, C are bfloat16, 0 if float32; param_bf16: the same
-// for a_log and d_skip. Requires B, T, D >= 1 and 1 <= S <= 16 (checked by
-// the Python wrapper). Returns cudaGetLastError().
+// for a_log and d_skip. ck: null, or floor((T - 1) / 8) * B * D * 16 floats
+// for h after every 8th step that a step follows ([m][b][d][16]). Requires
+// B, T, D >= 1 and 1 <= S <= 16 (checked by the Python wrapper). Returns
+// cudaGetLastError().
 extern "C" int ssm_scan_launch(const void* u, const void* dt, const void* b_in,
                                const void* c_in, const void* a_log,
-                               const void* d_skip, void* y, void* h_out, int B,
-                               int T, int D, int S, int in_bf16, int param_bf16,
-                               void* stream) {
+                               const void* d_skip, void* y, void* h_out,
+                               void* ck, int B, int T, int D, int S, int in_bf16,
+                               int param_bf16, void* stream) {
   if (S < 1 || S > MAXS) return (int)cudaErrorInvalidValue;
   float* yf = static_cast<float*>(y);
   float* hf = static_cast<float*>(h_out);
+  float* ckf = static_cast<float*>(ck);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_bf16)
-    launch<__nv_bfloat16>(u, dt, b_in, c_in, a_log, d_skip, yf, hf, B, T, D, S,
-                          param_bf16 != 0, st);
-  else
-    launch<float>(u, dt, b_in, c_in, a_log, d_skip, yf, hf, B, T, D, S,
-                  param_bf16 != 0, st);
+  const bool pb = param_bf16 != 0;
+  if (in_bf16) {
+    if (ckf)
+      launch<__nv_bfloat16, true>(u, dt, b_in, c_in, a_log, d_skip, yf, hf, ckf,
+                                  B, T, D, S, pb, st);
+    else
+      launch<__nv_bfloat16, false>(u, dt, b_in, c_in, a_log, d_skip, yf, hf,
+                                   ckf, B, T, D, S, pb, st);
+  } else {
+    if (ckf)
+      launch<float, true>(u, dt, b_in, c_in, a_log, d_skip, yf, hf, ckf, B, T,
+                          D, S, pb, st);
+    else
+      launch<float, false>(u, dt, b_in, c_in, a_log, d_skip, yf, hf, ckf, B, T,
+                           D, S, pb, st);
+  }
   return (int)cudaGetLastError();
 }

@@ -95,28 +95,34 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 class SelectiveScan(torch.autograd.Function):
     """The selective scan with its gradient: K3 forward and K3b backward on a
     card, ``ssm_scan_ref`` and ``ssm_scan_bwd_ref`` on the CPU (``impl`` as
-    in ``attention``). The forward saves its inputs only; the backward
-    recomputes the states. The cotangent of h_final seeds the reverse scan;
-    autograd passes None for it when h_final is unused (the training loss)."""
+    in ``attention``). The forward saves its inputs and, on a card, K3's
+    checkpoints of h (every 8th step), from which K3b recomputes the states
+    in between. The cotangent of h_final seeds the reverse scan; autograd
+    passes None for it when h_final is unused (the training loss)."""
 
     @staticmethod
     def forward(ctx, u, dt, b_in, c_in, a_log, d_skip, impl):
-        scan = ref.ssm_scan_ref if impl == "ref" else ssm_kernel
-        y, h = scan(u, dt, b_in, c_in, a_log, d_skip)
-        ctx.save_for_backward(u, dt, b_in, c_in, a_log, d_skip)
+        ck = None
+        if impl == "ref":
+            y, h = ref.ssm_scan_ref(u, dt, b_in, c_in, a_log, d_skip)
+        else:
+            y, h, ck = ssm_kernel(u, dt, b_in, c_in, a_log, d_skip, checkpoints=True)
+        ctx.save_for_backward(u, dt, b_in, c_in, a_log, d_skip, ck)
         ctx.impl = impl
         ctx.set_materialize_grads(False)
         return y, h
 
     @staticmethod
     def backward(ctx, dy, dh):
-        saved = ctx.saved_tensors          # unpacked once (remat allows no more)
+        *saved, ck = ctx.saved_tensors     # unpacked once (remat allows no more)
         u = saved[0]
         if dy is None:
             dy = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
-        bwd = ref.ssm_scan_bwd_ref if ctx.impl == "ref" else ssm_bwd_kernel
-        grads = bwd(*saved, dy.contiguous(),
-                    None if dh is None else dh.contiguous())
+        dh = None if dh is None else dh.contiguous()
+        if ctx.impl == "ref":
+            grads = ref.ssm_scan_bwd_ref(*saved, dy.contiguous(), dh)
+        else:
+            grads = ssm_bwd_kernel(*saved, dy.contiguous(), dh, h_checkpoints=ck)
         return (*grads, None)
 
 

@@ -44,6 +44,7 @@ from repro_torch.kernels.dequant import dequant as dequant_kernel
 from repro_torch.kernels.flash_attn import flash_attention as flash_kernel
 from repro_torch.kernels.flash_attn_bwd import flash_attention_bwd as flash_bwd_kernel
 from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
+from repro_torch.kernels import ssm_scan_bwd as ssm_bwd_mod
 from repro_torch.kernels.ssm_scan_bwd import ssm_scan_bwd as ssm_bwd_kernel
 from repro_torch.models import build_model
 from repro_torch.serve.serve_step import generate
@@ -281,7 +282,16 @@ SSM_BWD_SHAPES = [
     (1, 1, 8, 16),          # one step
     (1, 517, 70, 1),        # many chunks, S = 1
     (2, 50, 77, 16),        # D not a multiple of 8
+    (2, 40, 96, 3),         # S not a multiple of the 4 states a lane holds
+    (1, 70, 130, 7),        # likewise, with a ragged D
+    (1, 20, 8192, 16),      # falcon-mamba-7b's D at a short T
+    (2, 45, 64, 16),        # a ragged T over three chunks
 ]
+
+
+def _ck(args):
+    """K3's checkpoints of h for ``args``, as it writes them under grad."""
+    return ssm_kernel(*args, checkpoints=True)[2]
 
 
 def _close_bwd(got, want, dtype):
@@ -304,11 +314,12 @@ def test_ssm_scan_bwd_kernel_vs_plain(cuda, b, t, d, s, dtype, param_dtype, seed
     gen = torch.Generator(cuda).manual_seed(1)
     dy = torch.randn((b, t, d), generator=gen, device=cuda)
     dh = torch.randn((b, d, s), generator=gen, device=cuda) if seed_h else None
+    ck = _ck(args)
     before = ssm_bwd_kernel.launches
-    got = ssm_bwd_kernel(*args, dy, dh)
+    got = ssm_bwd_kernel(*args, dy, dh, h_checkpoints=ck)
     assert ssm_bwd_kernel.launches == before + 1
     _close_bwd(got, ref.ssm_scan_bwd_ref(*args, dy, dh), dtype)
-    again = ssm_bwd_kernel(*args, dy, dh)
+    again = ssm_bwd_kernel(*args, dy, dh, h_checkpoints=ck)
     assert all(torch.equal(x, y) for x, y in zip(got, again))     # the same bits
 
 
@@ -322,7 +333,7 @@ def test_ssm_scan_bwd_kernel_exp_underflow(cuda, b, t, d, s, dtype):
     gen = torch.Generator(cuda).manual_seed(2)
     dy = torch.randn((b, t, d), generator=gen, device=cuda)
     dh = torch.randn((b, d, s), generator=gen, device=cuda)
-    got = ssm_bwd_kernel(*args, dy, dh)
+    got = ssm_bwd_kernel(*args, dy, dh, h_checkpoints=_ck(args))
     assert all(bool(torch.isfinite(x).all()) for x in got)
     _close_bwd(got, ref.ssm_scan_bwd_ref(*args, dy, dh), dtype)
 
@@ -330,26 +341,76 @@ def test_ssm_scan_bwd_kernel_exp_underflow(cuda, b, t, d, s, dtype):
 def test_ssm_scan_bwd_kernel_refuses_bad_input(cuda):
     args = _ssm_args(cuda, 1, 8, 16, 16, torch.bfloat16, torch.float32)
     dy = torch.zeros((1, 8, 16), device=cuda)
+    ck = dict(h_checkpoints=_ck(args))
     before = ssm_bwd_kernel.launches
     with pytest.raises(ValueError, match="dtype"):
-        ssm_bwd_kernel(*args, dy.to(torch.bfloat16))
+        ssm_bwd_kernel(*args, dy.to(torch.bfloat16), **ck)
     with pytest.raises(ValueError, match="dtype"):
-        ssm_bwd_kernel(args[0].float(), *args[1:], dy)
+        ssm_bwd_kernel(args[0].float(), *args[1:], dy, **ck)
+    with pytest.raises(ValueError, match="dtype"):
+        ssm_bwd_kernel(*args, dy, h_checkpoints=ck["h_checkpoints"].to(torch.bfloat16))
     with pytest.raises(ValueError, match="shapes"):
-        ssm_bwd_kernel(*args, dy[:, :4].contiguous())
+        ssm_bwd_kernel(*args, dy[:, :4].contiguous(), **ck)
     with pytest.raises(ValueError, match="shapes"):
-        ssm_bwd_kernel(*args, dy, torch.zeros((1, 16, 8), device=cuda))
+        ssm_bwd_kernel(*args, dy, torch.zeros((1, 16, 8), device=cuda), **ck)
     with pytest.raises(ValueError, match="S must be"):
         wide = torch.zeros((1, 8, 17), device=cuda, dtype=torch.bfloat16)
         ssm_bwd_kernel(*args[:2], wide, wide, torch.zeros((16, 17), device=cuda),
-                       args[5], dy)
+                       args[5], dy, **ck)
     with pytest.raises(ValueError, match="contiguous"):
-        ssm_bwd_kernel(*args, dy.transpose(1, 2).contiguous().transpose(1, 2))
+        ssm_bwd_kernel(*args, dy.transpose(1, 2).contiguous().transpose(1, 2), **ck)
     with pytest.raises(ValueError, match="aligned"):
         flat = torch.zeros(8 * 16 + 1, device=cuda)
-        ssm_bwd_kernel(*args, flat[1:].view(1, 8, 16))
+        ssm_bwd_kernel(*args, flat[1:].view(1, 8, 16), **ck)
     with pytest.raises(ValueError, match="CUDA"):
-        ssm_bwd_kernel(*args, dy.cpu())
+        ssm_bwd_kernel(*args, dy.cpu(), **ck)
+    with pytest.raises(TypeError, match="h_checkpoints"):
+        ssm_bwd_kernel(*args, dy)
+    assert ssm_bwd_kernel.launches == before
+
+
+@pytest.mark.parametrize("b,t,d,s", SSM_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_bwd_from_forward_checkpoints(cuda, b, t, d, s, dtype):
+    # K3's checkpoints of h (under grad) are h after every 8th step, and K3
+    # with them gives y, h_final as without them (K3b from them is held to
+    # the plain backward above); K3b refuses checkpoints of another shape
+    args = _ssm_args(cuda, b, t, d, s, dtype, torch.float32)
+    gen = torch.Generator(cuda).manual_seed(4)
+    dy = torch.randn((b, t, d), generator=gen, device=cuda)
+    dh = torch.randn((b, d, s), generator=gen, device=cuda)
+    y, h, ck = ssm_kernel(*args, checkpoints=True)
+    assert ck.shape == ((t - 1) // 8, b, d, 16)
+    assert all(torch.equal(x, z) for x, z in zip((y, h), ssm_kernel(*args)))
+    want = None
+    for m in range(ck.shape[0]):            # h after step 8 m + 7, zero past S
+        _, want = ref.ssm_scan_ref(*[x[:, 8 * m:8 * m + 8] if i < 4 else x
+                                     for i, x in enumerate(args)], h0=want)
+        torch.testing.assert_close(ck[m, ..., :s], want, rtol=1e-4, atol=1e-4)
+        assert not ck[m, ..., s:].any()
+    with pytest.raises(ValueError, match="shapes"):
+        ssm_bwd_kernel(*args, dy, dh, h_checkpoints=torch.zeros(
+            (ck.shape[0] + 1,) + ck.shape[1:], device=cuda))
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("vec", [True, False], ids=["vec", "elementwise"])
+def test_ssm_scan_bwd_blocks_per_sm_as_planned(cuda, bf16, vec):
+    # the waves the launch plan gives (PERF.md) assume this many blocks an SM
+    assert ssm_bwd_mod.blocks_per_sm(bf16, vec) == ssm_bwd_mod.BLOCKS_PER_SM
+
+
+def test_ssm_scan_bwd_kernel_refuses_another_plan(cuda, monkeypatch):
+    args = _ssm_args(cuda, 1, 8, 16, 16, torch.bfloat16, torch.float32)
+    dy = torch.zeros((1, 8, 16), device=cuda)
+    right = ssm_bwd_mod.plan(1, 8, 16, 16)
+    before = ssm_bwd_kernel.launches
+    for wrong in (dict(grid=(right.grid[0] + 1, 1)), dict(threads=right.threads // 2),
+                  dict(smem_bytes=right.smem_bytes - 16)):
+        monkeypatch.setattr(ssm_bwd_mod, "plan", lambda *a, w=wrong: right.__class__(
+            **{**right.__dict__, **w}))
+        with pytest.raises(RuntimeError, match="cudaError"):
+            ssm_bwd_kernel(*args, dy, h_checkpoints=_ck(args))
     assert ssm_bwd_kernel.launches == before
 
 

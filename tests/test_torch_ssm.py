@@ -180,11 +180,12 @@ def test_ssm_scan_under_grad_runs_the_autograd_function(rng):
 def test_ssm_scan_bwd_kernel_refuses_cpu_tensors(rng):
     args = [torch.from_numpy(x) for x in _scan_inputs(rng, 1, 6, 4, 2)]
     dy = torch.zeros((1, 6, 4))
+    ck = torch.zeros((0, 1, 4, 16))          # no checkpoint before step 8
     before = ssm_bwd_kernel.launches
     with pytest.raises(ValueError, match="CUDA"):
-        ssm_bwd_kernel(*args, dy)
+        ssm_bwd_kernel(*args, dy, h_checkpoints=ck)
     with pytest.raises(ValueError, match="CUDA"):
-        ssm_bwd_kernel(*args, dy, torch.zeros((1, 4, 2)))
+        ssm_bwd_kernel(*args, dy, torch.zeros((1, 4, 2)), h_checkpoints=ck)
     assert ssm_bwd_kernel.launches == before
 
 
